@@ -1,0 +1,140 @@
+"""Fused log-mel fbank: kernel K1 (``csrc/fbank.cu``) and its plain version.
+
+Replaces pykaldi2_tpu/frontend/fused.py:_kernel (the Pallas fused fbank,
+called through ``fused_fbank``). Per frame row: DC removal over the real
+window, pre-emphasis, window, real DFT as cos/sin products, power, mel
+product, log with a FLT_EPSILON floor; dither must be 0 and the options the
+standard log-power fbank without energy, as in the reference.
+
+On the H100 the kernel is bound by fp32 FMA throughput (no TF32, no tensor
+cores: the front end is fp32-exact); see the note at the top of
+``csrc/fbank.cu`` for what its design does about it. Framing moved inside
+the kernel: it reads the waveform through the ``_frame_indices`` table
+(the Mosaic limit that kept framing outside the TPU kernel does not apply).
+
+``fused_fbank`` takes the plain version only for tensors on the CPU; on a
+CUDA tensor it launches the kernel or raises. ``fused_fbank.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import numpy as np
+import torch
+
+from pykaldi2_tpu_torch import device as D
+from pykaldi2_tpu_torch.config import FbankOpts
+from pykaldi2_tpu_torch.frontend import window as W
+from pykaldi2_tpu_torch.frontend.fbank import _dft_matrices
+from pykaldi2_tpu_torch.frontend.mel import mel_banks
+
+
+def _check_opts(opts: FbankOpts) -> None:
+    if opts.frame_opts.dither != 0.0:
+        raise ValueError("fused kernel expects dither pre-applied (or 0)")
+    if opts.use_energy or not opts.use_log_fbank or not opts.use_power:
+        raise ValueError("fused kernel covers the standard log-power fbank path")
+
+
+def _opts_key(opts: FbankOpts) -> tuple:
+    fo, mo = opts.frame_opts, opts.mel_opts
+    return (fo.samp_freq, fo.frame_shift_ms, fo.frame_length_ms, fo.preemph_coeff,
+            fo.remove_dc_offset, fo.window_type, fo.round_to_power_of_two,
+            fo.blackman_coeff, fo.snip_edges, mo.num_bins, mo.low_freq, mo.high_freq,
+            mo.vtln_warp, mo.vtln_low, mo.vtln_high)
+
+
+_CONSTANTS: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+
+
+def _constants(opts: FbankOpts, n_samples: int, device: torch.device):
+    """Device tensors the kernel reads: frame index table [T, W] int32,
+    window [W], DFT tables restricted to the W real rows [W, K], and the
+    transposed mel matrix [K, M]. Cached per (options, length, device)."""
+    key = (_opts_key(opts), n_samples, str(device))
+    hit = _CONSTANTS.get(key)
+    if hit is not None:
+        return hit
+    fo = opts.frame_opts
+    n_fft = fo.padded_window_size
+    t_frames = W.num_frames(n_samples, fo)
+    cos_m, sin_m = _dft_matrices(n_fft)
+    win = fo.window_size
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    out = (put(W._frame_indices(n_samples, t_frames, fo), torch.int32),
+           put(W.feature_window(fo)), put(cos_m[:win]), put(sin_m[:win]),
+           put(mel_banks(opts.mel_opts, fo).T))
+    _CONSTANTS[key] = out
+    while len(_CONSTANTS) > 16:
+        _CONSTANTS.popitem(last=False)
+    return out
+
+
+def fused_fbank_plain(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
+    """Plain torch version of K1: the same steps on the same constants."""
+    _check_opts(opts)
+    fo = opts.frame_opts
+    b, s = wave.shape
+    idx, win, cos_w, sin_w, mel_t = _constants(opts, s, wave.device)
+    frames = wave.to(torch.float32)[:, idx.long()]                    # [B, T, W]
+    if fo.remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if fo.preemph_coeff != 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - fo.preemph_coeff * prev
+    x = frames * win
+    re = x @ cos_w                                   # zero-padded tail adds nothing
+    im = x @ sin_w
+    mel = (re * re + im * im) @ mel_t
+    return torch.log(torch.clamp(mel, min=W.FLT_EPSILON))
+
+
+def fused_fbank(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
+    """[B, S] fp32 waveform → [B, T, num_bins] log-mel (dither must be 0)."""
+    _check_opts(opts)
+    if wave.dim() != 2:
+        raise ValueError(f"fused_fbank expects a [B, S] waveform, got {tuple(wave.shape)}")
+    if wave.device.type == "cpu":
+        return fused_fbank_plain(wave, opts)
+    if wave.device.type != "cuda":
+        raise ValueError(f"fused_fbank: unsupported device {wave.device}")
+    if wave.dtype != torch.float32 or not wave.is_contiguous():
+        raise ValueError("fused_fbank: the kernel takes a contiguous float32 waveform")
+    fo = opts.frame_opts
+    b, s = wave.shape
+    t_frames = W.num_frames(s, fo)
+    nb = opts.mel_opts.num_bins
+    out = torch.empty((b, t_frames, nb), dtype=torch.float32, device=wave.device)
+    if b * t_frames == 0:
+        return out
+    idx, win, cos_w, sin_w, mel_t = _constants(opts, s, wave.device)
+    k = cos_w.shape[1]
+    lib = _lib()
+    with torch.cuda.device(wave.device):
+        rc = lib.pk2_fbank(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
+                           D.ptr(mel_t), D.ptr(out), b, s, t_frames, fo.window_size, k, nb,
+                           int(fo.remove_dc_offset), float(fo.preemph_coeff),
+                           float(W.FLT_EPSILON), D.current_stream_ptr(wave.device))
+    D.check_launch(rc, "fbank kernel (K1)")
+    fused_fbank.launches += 1
+    return out
+
+
+fused_fbank.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = D.load_kernel_lib("fbank")
+    if not getattr(lib, "_pk2_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pk2_fbank.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                  ci, cf, cf, vp]
+        lib.pk2_fbank.restype = ci
+        lib._pk2_typed = True
+    return lib

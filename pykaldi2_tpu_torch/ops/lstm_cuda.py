@@ -1,0 +1,285 @@
+"""LSTM recurrence: kernels K2/K3 (``csrc/lstm.cu``), plain versions, autograd.
+
+Counterpart of pykaldi2_tpu/ops/lstm_pallas.py:135-330. Replaces
+``_fwd_kernel`` (K2) and ``_bwd_kernel`` (K3): per step, gates = xp_t +
+h·Wh with bf16 operands and an fp32 sum, sigmoid/tanh gates, an fp32 cell,
+and a masked carry (padded frames keep their state, which also makes the
+reversed direction right for right-padded batches); the backward runs in
+reverse time and emits the pre-activation gate gradients. dWh is one
+bf16 GEMM outside the kernels, as in the reference (lstm_pallas.py:318-325).
+
+On the H100 the kernels are bound by the per-step latency of exchanging the
+new state across the grid, not by bytes or flops; see the note at the top of
+``csrc/lstm.cu`` for the persistent cooperative design (Wh slices resident in
+shared memory, mma.sync, one grid barrier per step).
+
+Streams stay fp32 at every size: the JAX package's bf16 stream mode
+(``_stream_dtype``) existed only for the TPU's VMEM budget. ``gates`` are
+kept in bf16 for the backward, as in the reference.
+
+Each wrapper takes the plain version only for CPU tensors; on CUDA tensors
+it launches its kernel or raises. ``lstm_fwd.launches`` and
+``lstm_bwd.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from pykaldi2_tpu_torch import device as D
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# bf16 products with an fp32 result
+# ---------------------------------------------------------------------------
+
+
+def mm_bf16(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b with both operands rounded to bf16, summed and returned in fp32
+    (the reference's ``preferred_element_type=float32`` products).
+
+    On the CPU the rounded operands are multiplied in fp32, which is exact
+    for bf16 products. On CUDA it is one cuBLAS bf16 GEMM with an fp32
+    output (``torch.mm`` with ``out_dtype``)."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        return torch.mm(a16, b16, out_dtype=torch.float32)
+    return a16.float() @ b16.float()
+
+
+class MatmulBf16(torch.autograd.Function):
+    """x [N, K] @ w [K, M] through ``mm_bf16``; gradients are bf16 products
+    with fp32 results too."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return mm_bf16(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = mm_bf16(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = mm_bf16(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def linear(x: Tensor, w: Tensor, compute_dtype: torch.dtype) -> Tensor:
+    """x [..., K] @ w [K, M] → fp32 [..., M]; bf16 operands when
+    ``compute_dtype`` is bfloat16, plain fp32 otherwise."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if compute_dtype == torch.bfloat16:
+        out = MatmulBf16.apply(x2, w)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*lead, w.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the same arithmetic as the kernels, in torch)
+# ---------------------------------------------------------------------------
+
+
+def lstm_fwd_plain(xp: Tensor, wh_b: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """xp [T,B,4H] f32, wh_b [H,4H] bf16, mask [T,B] f32 → ys, cs [T,B,H] f32,
+    gates [T,B,4H] bf16 (activated i, f, g, o)."""
+    t_len, b, h4 = xp.shape
+    h = h4 // 4
+    whf = wh_b.float()
+    hs = xp.new_zeros(b, h)
+    c = xp.new_zeros(b, h)
+    ys, cs, gates = [], [], []
+    for t in range(t_len):
+        pre = xp[t] + hs.to(torch.bfloat16).float() @ whf
+        i = torch.sigmoid(pre[:, :h])
+        f = torch.sigmoid(pre[:, h:2 * h])
+        g = torch.tanh(pre[:, 2 * h:3 * h])
+        o = torch.sigmoid(pre[:, 3 * h:])
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = mask[t][:, None]
+        hs = m * h_new + (1.0 - m) * hs
+        c = m * c_new + (1.0 - m) * c
+        ys.append(hs)
+        cs.append(c)
+        gates.append(torch.cat([i, f, g, o], dim=-1).to(torch.bfloat16))
+    return torch.stack(ys), torch.stack(cs), torch.stack(gates)
+
+
+def lstm_bwd_plain(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor,
+                   wh_b: Tensor) -> Tensor:
+    """dys [T,B,H] f32, gates [T,B,4H] bf16, cs [T,B,H] f32, mask [T,B],
+    wh_b [H,4H] bf16 → dgates [T,B,4H] f32 (pre-activation gate gradients)."""
+    t_len, b, h = dys.shape
+    whT = wh_b.float().t()
+    dh_s = dys.new_zeros(b, h)
+    dc_s = dys.new_zeros(b, h)
+    out = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        m = mask[t][:, None]
+        dh_total = dh_s + dys[t]
+        dc_in = dc_s
+        gt = gates[t].float()
+        i, f, g, o = gt[:, :h], gt[:, h:2 * h], gt[:, 2 * h:3 * h], gt[:, 3 * h:]
+        c = cs[t]
+        c_prev = cs[t - 1] if t > 0 else torch.zeros_like(c)
+        tanh_c = torch.tanh(c)
+        dh_m = m * dh_total
+        do = dh_m * tanh_c
+        dc = dh_m * o * (1.0 - tanh_c * tanh_c) + m * dc_in
+        di, df, dg = dc * g, dc * c_prev, dc * i
+        dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                            dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        out[t] = dgates
+        dh_rec = dgates.to(torch.bfloat16).float() @ whT
+        dh_s = dh_rec + (1.0 - m) * dh_total
+        dc_s = dc * f + (1.0 - m) * dc_in
+    return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    lib = D.load_kernel_lib("lstm")
+    if not getattr(lib, "_pk2_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pk2_lstm_fwd.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        lib.pk2_lstm_fwd.restype = ci
+        lib.pk2_lstm_bwd.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        lib.pk2_lstm_bwd.restype = ci
+        lib.pk2_lstm_max_batch.argtypes = []
+        lib.pk2_lstm_max_batch.restype = ci
+        lib._pk2_typed = True
+    return lib
+
+
+def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device):
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_hidden(h: int):
+    # H/8 CTAs must be co-resident, and one CTA's shared memory holds the
+    # Wh slice plus a 64-row bf16 copy of h: both cap H at 1024
+    if h < 16 or h % 16 or h > 1024:
+        raise ValueError(f"LSTM kernels take a hidden size that is a multiple of 16 "
+                         f"and at most 1024, got {h}")
+
+
+def lstm_fwd(xp: Tensor, wh_b: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2. Same contract as ``lstm_fwd_plain``."""
+    if xp.device.type == "cpu":
+        return lstm_fwd_plain(xp, wh_b, mask)
+    t_len, b, h4 = xp.shape
+    h = h4 // 4
+    dev = xp.device
+    _check("xp", xp, torch.float32, (t_len, b, h4), dev)
+    _check("wh", wh_b, torch.bfloat16, (h, h4), dev)
+    _check("mask", mask, torch.float32, (t_len, b), dev)
+    _check_hidden(h)
+    lib = _lib()
+    ys = torch.empty((t_len, b, h), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(ys)
+    gates = torch.empty((t_len, b, h4), dtype=torch.bfloat16, device=dev)
+    max_b = lib.pk2_lstm_max_batch()
+    with torch.cuda.device(dev):
+        stream = D.current_stream_ptr(dev)
+        for b0 in range(0, b, max_b):
+            nb = min(max_b, b - b0)
+            hbuf = torch.empty((2, nb, h), dtype=torch.bfloat16, device=dev)
+            rc = lib.pk2_lstm_fwd(
+                ctypes.c_void_p(xp.data_ptr() + b0 * h4 * 4), D.ptr(wh_b),
+                ctypes.c_void_p(mask.data_ptr() + b0 * 4),
+                ctypes.c_void_p(ys.data_ptr() + b0 * h * 4),
+                ctypes.c_void_p(cs.data_ptr() + b0 * h * 4),
+                ctypes.c_void_p(gates.data_ptr() + b0 * h4 * 2), D.ptr(hbuf),
+                t_len, nb, b, h, stream)
+            D.check_launch(rc, "LSTM forward kernel (K2)")
+            lstm_fwd.launches += 1
+    return ys, cs, gates
+
+
+lstm_fwd.launches = 0
+
+
+def lstm_bwd(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor, wh_b: Tensor) -> Tensor:
+    """K3. Same contract as ``lstm_bwd_plain``."""
+    if dys.device.type == "cpu":
+        return lstm_bwd_plain(dys, gates, cs, mask, wh_b)
+    t_len, b, h = dys.shape
+    h4 = 4 * h
+    dev = dys.device
+    _check("dys", dys, torch.float32, (t_len, b, h), dev)
+    _check("gates", gates, torch.bfloat16, (t_len, b, h4), dev)
+    _check("cs", cs, torch.float32, (t_len, b, h), dev)
+    _check("mask", mask, torch.float32, (t_len, b), dev)
+    _check("wh", wh_b, torch.bfloat16, (h, h4), dev)
+    _check_hidden(h)
+    lib = _lib()
+    dgates = torch.empty((t_len, b, h4), dtype=torch.float32, device=dev)
+    max_b = lib.pk2_lstm_max_batch()
+    with torch.cuda.device(dev):
+        stream = D.current_stream_ptr(dev)
+        for b0 in range(0, b, max_b):
+            nb = min(max_b, b - b0)
+            dgbuf = torch.empty((2, nb, h4), dtype=torch.bfloat16, device=dev)
+            rc = lib.pk2_lstm_bwd(
+                ctypes.c_void_p(dys.data_ptr() + b0 * h * 4),
+                ctypes.c_void_p(gates.data_ptr() + b0 * h4 * 2),
+                ctypes.c_void_p(cs.data_ptr() + b0 * h * 4),
+                ctypes.c_void_p(mask.data_ptr() + b0 * 4), D.ptr(wh_b),
+                ctypes.c_void_p(dgates.data_ptr() + b0 * h4 * 4), D.ptr(dgbuf),
+                t_len, nb, b, h, stream)
+            D.check_launch(rc, "LSTM backward kernel (K3)")
+            lstm_bwd.launches += 1
+    return dgates
+
+
+lstm_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class LstmSeq(torch.autograd.Function):
+    """``LstmSeq.apply(xp, wh, mask) -> ys``: xp [T,B,4H] (input projections
+    plus bias), wh [H,4H], mask [T,B] or [T,B,1] → ys [T,B,H]. Same contract
+    as ``lstm_seq_pallas`` (lstm_pallas.py:296-330): Wh is rounded to bf16,
+    gradients flow to xp (the gate gradients) and to wh."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, mask):
+        mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
+        wh_b = wh.to(torch.bfloat16).contiguous()
+        ys, cs, gates = lstm_fwd(xp.to(torch.float32).contiguous(), wh_b, mask2)
+        ctx.save_for_backward(wh_b, mask2, ys, cs, gates)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        wh_b, mask2, ys, cs, gates = ctx.saved_tensors
+        dgates = lstm_bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b)
+        t_len, b, h = ys.shape
+        dwh = None
+        if ctx.needs_input_grad[1]:
+            # dWh = sum_t h_{t-1}^T dgates_t: one bf16 GEMM with an fp32 result
+            h_prev = torch.cat([ys.new_zeros(1, b, h), ys[:-1]], dim=0)
+            dwh = mm_bf16(h_prev.reshape(-1, h).t(), dgates.reshape(-1, 4 * h))
+        return dgates, dwh, None

@@ -1,0 +1,207 @@
+"""LSTM recurrence (K2/K3 plain versions), LSTMStack and NnetAM of the port
+against the JAX package.
+
+The reference is the Pallas path (``lstm_seq_pallas`` in interpret mode) at
+its supported shapes (B=8, H=128): it rounds Wh and h to bf16 for the
+recurrent product exactly as the port does, so forward values agree to
+fp32 summation-order noise. Tolerances: 1e-5 where both sides do the same
+bf16-operand arithmetic; 2e-2 (the bound tests/test_lstm_pallas.py uses)
+against the fp32 lax.scan; bf16 compute for the input/output GEMMs adds
+~1e-2 on logits.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import pykaldi2_tpu.ops.lstm_pallas as LP
+from pykaldi2_tpu.config import ModelConfig as JaxModelConfig
+from pykaldi2_tpu.models import build_model as jax_build_model
+from pykaldi2_tpu.models.lstm import lstm_layer_apply as jax_layer_apply
+from pykaldi2_tpu.models.lstm import lstm_layer_init as jax_layer_init
+
+from pykaldi2_tpu_torch.config import ModelConfig
+from pykaldi2_tpu_torch.convert import params_from_jax, params_to_jax
+from pykaldi2_tpu_torch.models import build_model
+from pykaldi2_tpu_torch.models.lstm import LSTMStack, lstm_layer_apply
+from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+from torch_port_helpers import pallas_interpret, to_np  # noqa: F401
+
+SAME_ARITH = dict(rtol=1e-5, atol=1e-5)   # same bf16-operand math, fp32 sum order
+VS_SCAN = dict(rtol=2e-2, atol=2e-2)      # bf16 Wh/h against the fp32 scan
+
+
+def _seq_data(seed=0, t=6, b=8, h=128):
+    rng = np.random.RandomState(seed)
+    xp = (rng.randn(t, b, 4 * h) * 0.7).astype(np.float32)
+    wh = rng.uniform(-0.15, 0.15, (h, 4 * h)).astype(np.float32)
+    mask = np.ones((t, b), np.float32)
+    mask[t // 2:, -1] = 0.0      # one right-padded row
+    mask[1:, 2] = 0.0            # one row with a single valid frame
+    return xp, wh, mask
+
+
+def test_lstm_seq_forward_matches_pallas(pallas_interpret):
+    xp, wh, mask = _seq_data()
+    ref = LP.lstm_seq_pallas(jnp.asarray(xp), jnp.asarray(wh), jnp.asarray(mask[..., None]))
+    got = L.LstmSeq.apply(torch.from_numpy(xp), torch.from_numpy(wh), torch.from_numpy(mask))
+    np.testing.assert_allclose(to_np(got), to_np(ref), **SAME_ARITH)
+
+
+def test_lstm_seq_gradients_match_pallas(pallas_interpret):
+    xp, wh, mask = _seq_data(seed=1, t=5)
+    w = (np.arange(5 * 8 * 128, dtype=np.float32).reshape(5, 8, 128) % 17 - 8) * 1e-2
+
+    def loss(a, b):
+        return jnp.sum(LP.lstm_seq_pallas(a, b, jnp.asarray(mask[..., None])) * w)
+
+    gx_ref, gw_ref = jax.grad(loss, argnums=(0, 1))(jnp.asarray(xp), jnp.asarray(wh))
+    xt = torch.from_numpy(xp).requires_grad_(True)
+    wt = torch.from_numpy(wh).requires_grad_(True)
+    (L.LstmSeq.apply(xt, wt, torch.from_numpy(mask)) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(to_np(xt.grad), to_np(gx_ref), **SAME_ARITH)
+    # dWh: one bf16-operand GEMM on each side over T*B rows
+    np.testing.assert_allclose(to_np(wt.grad), to_np(gw_ref), rtol=1e-4, atol=1e-5)
+
+
+def test_k3_plain_matches_pallas_bwd_kernel(pallas_interpret):
+    xp, wh, mask = _seq_data(seed=2)
+    wh_b = jnp.asarray(wh).astype(jnp.bfloat16)
+    m3 = jnp.asarray(mask[..., None])
+    ys, cs, gates = LP._lstm_fwd_pallas(jnp.asarray(xp), wh_b, m3)
+    dys = np.random.RandomState(3).randn(*ys.shape).astype(np.float32)
+    cs_prev = jnp.concatenate([jnp.zeros_like(cs[:1]), cs[:-1]], axis=0)
+    ref = LP._lstm_bwd_pallas(jnp.asarray(dys), gates, cs, cs_prev, m3,
+                              jnp.swapaxes(wh_b, 0, 1), jnp.float32)
+    t_gates = torch.from_numpy(np.array(gates.astype(jnp.float32))).to(torch.bfloat16)
+    got = L.lstm_bwd(torch.from_numpy(dys), t_gates, torch.from_numpy(np.array(cs)),
+                     torch.from_numpy(mask), torch.from_numpy(wh).to(torch.bfloat16))
+    np.testing.assert_allclose(to_np(got), to_np(ref), **SAME_ARITH)
+
+
+def test_k2_plain_outputs_match_pallas_fwd_kernel(pallas_interpret):
+    xp, wh, mask = _seq_data(seed=4)
+    ys, cs, gates = LP._lstm_fwd_pallas(jnp.asarray(xp), jnp.asarray(wh).astype(jnp.bfloat16),
+                                        jnp.asarray(mask[..., None]))
+    y2, c2, g2 = L.lstm_fwd(torch.from_numpy(xp), torch.from_numpy(wh).to(torch.bfloat16),
+                            torch.from_numpy(mask))
+    np.testing.assert_allclose(to_np(y2), to_np(ys), **SAME_ARITH)
+    np.testing.assert_allclose(to_np(c2), to_np(cs), **SAME_ARITH)
+    assert g2.dtype == torch.bfloat16
+    # saved gates are bf16: allow one bf16 ulp where fp32 noise crosses a rounding edge
+    np.testing.assert_allclose(to_np(g2), np.asarray(gates.astype(jnp.float32)), atol=4e-3)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_layer_apply_matches_jax_pallas_path(pallas_interpret, reverse):
+    """Input projection + recurrence, forward and reversed, on right-padded rows."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(8, 7, 16).astype(np.float32)
+    mask = np.ones((8, 7), np.float32)
+    mask[-1, 4:] = 0.0
+    p = {k: np.array(v) for k, v in jax_layer_init(jax.random.PRNGKey(5), 16, 128).items()}
+    ref = jax_layer_apply(p, jnp.asarray(x), jnp.asarray(mask), reverse=reverse,
+                          compute_dtype=jnp.float32, use_pallas=True)
+    got = lstm_layer_apply({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
+                           torch.from_numpy(mask), reverse=reverse, compute_dtype=torch.float32)
+    np.testing.assert_allclose(to_np(got), to_np(ref), **SAME_ARITH)
+    scan = jax_layer_apply(p, jnp.asarray(x), jnp.asarray(mask), reverse=reverse,
+                           compute_dtype=jnp.float32, use_pallas=False)
+    np.testing.assert_allclose(to_np(got), to_np(scan), **VS_SCAN)
+
+
+def test_masked_frames_carry_state():
+    xp, wh, mask = _seq_data(seed=6)
+    ys = L.LstmSeq.apply(torch.from_numpy(xp), torch.from_numpy(wh), torch.from_numpy(mask))
+    # padded frames repeat the last valid state
+    assert torch.equal(ys[3:, -1], ys[2:3, -1].expand(3, -1))
+    assert torch.equal(ys[1:, 2], ys[0:1, 2].expand(5, -1))
+
+
+def test_kernel_wrappers_on_cpu_are_the_plain_versions():
+    xp, wh, mask = _seq_data(seed=7)
+    a, b_ = torch.from_numpy(xp), torch.from_numpy(wh).to(torch.bfloat16)
+    m = torch.from_numpy(mask)
+    before = (L.lstm_fwd.launches, L.lstm_bwd.launches)
+    for u, v in zip(L.lstm_fwd(a, b_, m), L.lstm_fwd_plain(a, b_, m)):
+        assert torch.equal(u, v)
+    ys, cs, gates = L.lstm_fwd_plain(a, b_, m)
+    dys = torch.randn_like(ys)
+    assert torch.equal(L.lstm_bwd(dys, gates, cs, m, b_), L.lstm_bwd_plain(dys, gates, cs, m, b_))
+    assert (L.lstm_fwd.launches, L.lstm_bwd.launches) == before  # no kernel ran
+
+
+def test_bf16_matmul_matches_jax_preferred_f32():
+    rng = np.random.RandomState(8)
+    a, b = rng.randn(33, 20).astype(np.float32), rng.randn(20, 7).astype(np.float32)
+    ref = jnp.dot(jnp.asarray(a).astype(jnp.bfloat16), jnp.asarray(b).astype(jnp.bfloat16),
+                  preferred_element_type=jnp.float32)
+    got = L.mm_bf16(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), to_np(ref), **SAME_ARITH)
+
+
+def _models(kind, layers, compute):
+    jcfg = JaxModelConfig(type=kind, input_size=12, hidden_size=128, num_layers=layers,
+                          output_size=10, compute_dtype=compute)
+    tcfg = ModelConfig(type=kind, input_size=12, hidden_size=128, num_layers=layers,
+                       output_size=10, compute_dtype=compute)
+    jm = jax_build_model(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(layers)))
+    tm = build_model(tcfg)
+    tm.load_state_dict(params_from_jax(params))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("kind,layers,compute,tol", [
+    ("lstm", 2, "float32", 1e-5),
+    ("blstm", 2, "float32", 1e-5),
+    ("lstm", 2, "bfloat16", 2e-2),   # bf16 input/output GEMMs round at other places
+])
+def test_nnet_am_with_carried_weights_matches_jax(pallas_interpret, kind, layers, compute, tol):
+    jm, params, tm = _models(kind, layers, compute)
+    rng = np.random.RandomState(9)
+    x = rng.randn(8, 9, 12).astype(np.float32)
+    mask = np.ones((8, 9), np.float32)
+    mask[3, 5:] = 0.0
+    ref = jm.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(mask))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(mask))
+    assert got.shape == ref.shape == (8, 9, 10)
+    np.testing.assert_allclose(to_np(got), to_np(ref), rtol=tol, atol=tol)
+
+
+def test_convert_round_trip_and_layout():
+    _, params, tm = _models("blstm", 2, "float32")
+    sd = tm.state_dict()
+    assert tuple(sd["nnet.layers.0.fwd.wx"].shape) == (12, 512)      # [D, 4H], not transposed
+    assert tuple(sd["nnet.layers.1.bwd.wh"].shape) == (128, 512)     # [H, 4H]
+    back = params_to_jax(sd)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_unported_model_options_raise():
+    with pytest.raises(NotImplementedError, match="K5/K6"):
+        LSTMStack(8, 16, 1, proj_size=8)
+    for kind in ("tdnn", "transformer"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_model(ModelConfig(type=kind))
+
+
+def test_dropout_draws_from_generator():
+    stack = LSTMStack(6, 16, 3, dropout=0.5, compute_dtype=torch.float32)
+    x = torch.randn(2, 5, 6)
+    with pytest.raises(ValueError, match="Generator"):
+        stack(x, train=True)
+    with torch.no_grad():
+        a = stack(x, train=True, generator=torch.Generator().manual_seed(1))
+        b = stack(x, train=True, generator=torch.Generator().manual_seed(1))
+        c = stack(x, train=False)
+    assert torch.equal(a, b) and not torch.equal(a, c)
