@@ -1,13 +1,16 @@
-"""Drive the PyTorch port's CE main path on one CUDA card and check its kernels.
+"""Drive the PyTorch port's main paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. build every kernel (csrc/*.cu, one nvcc each, in parallel) for sm_90a;
+  1. build every kernel (csrc/*.cu, one nvcc each, in parallel) for sm_90a,
+     and the native lattice decoder (native/latdec.cc, g++) beside them;
   2. hold each kernel against its plain PyTorch version at the flagship
      shapes (B=64 rows of 80-frame chunks, 80 fbank bins, H=1024), with the
      tolerances below, and time kernel, plain version and library call;
-     then a small BLSTM's outputs and gradients on the card against the CPU;
+     K7-K10 likewise on the probe lattice of bench.py:626-647 (B=32, T=448,
+     K=A=256, 8952 pdfs); then a small BLSTM's outputs and gradients on the
+     card against the CPU;
   3. write a synthetic wave corpus (128 utterances of 1-3 s, random pdf-ids
      below 8952) and run the port's ``bin/train_ce.main`` on it at full width
      (4x1024 LSTM, 80-bin fbank, 8952 senones, batch 64, 80-frame chunks, Adam
@@ -16,7 +19,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4. one eval pass of the trained checkpoint on the card, held against the
      same model on the CPU (plain versions) on a small input;
   5. train-step timing and a short profile of the device time by kernel;
-  6. K2/K3 time against sequence length and batch (per-step vs fixed cost).
+  6. K2/K3 time against sequence length and batch (per-step vs fixed cost);
+  7. on-the-fly lattice sequence training: a corpus of 96 whole utterances
+     of 4-4.5 s (up to 448 frames) with random pdf-ids of the 41-phone
+     3-state model of bench.py:366-371 (123 pdfs), and ``bin/train_se.main
+     -on_the_fly -decoder host`` seeded from phase 3's checkpoint at full
+     width (batch 32, momentum 0.9, lr 1e-5, clip 5, ce_ratio 0.1, beam 10,
+     lattice beam 4, max_active 200), 3 steps under MMI and 3 under sMBR,
+     launch counts zeroed before and read after each; then K7-K10 against
+     their plain versions on a decoded lattice batch, and a profile of one
+     SE train step per criterion.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -29,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +55,23 @@ FRAMES_PER_UTT = 1230.0  # LibriSpeech-960 mean utterance length (bench.py:36)
 # layers whose bf16 rounding of h can flip on a tie
 TOL = {"fbank": 2e-3, "lstm_fwd": 2e-3, "lstm_fwd_gates": 8e-3, "lstm_bwd": 1e-3,
        "eval_logits": 5e-2, "blstm_out": 1e-2, "blstm_grad_rel": 1e-2}
+# K7-K10 vs plain: the same fp32 arithmetic, but the kernels add each slot's
+# arcs with shared-memory atomics, in another order. Logs (alphas, norms,
+# logZ) agree to 1e-4·max(1, |x|). gamma = exp(lg) agrees to 1e-5 + 1e-4·|γ|:
+# lg adds the cumulative norms (hundreds; one fp32 ulp ~1e-5), so a rounding
+# there is a relative error of γ. contrib = γ·(c − f) agrees to
+# 1e-5·max(1, |f|) + 1e-4·|contrib|: c and f are expected frame counts of up
+# to T, and their difference keeps their ulps.
+LAT_TOL = {"log": 1e-4, "rel": 1e-4, "abs": 1e-5}
+SE_B, SE_T, SE_UTTS, SE_PHONES, SE_PROBE_KA = 32, 448, 96, 41, 256
+# banded lattice kernels: the TPU kernel each replaces, and the fp32
+# operations one frame needs per arc and per slot (bounds below)
+LATFB = {
+    "latfb_logz_fwd": ("K7", "pykaldi2_tpu/ops/fb_lattice_pallas.py:159", 6, 8),
+    "latfb_occupancies_bwd": ("K8", "pykaldi2_tpu/ops/fb_lattice_pallas.py:238", 14, 8),
+    "latfb_smbr_fwd": ("K9", "pykaldi2_tpu/ops/fb_lattice_pallas.py:325", 9, 13),
+    "latfb_smbr_bwd": ("K10", "pykaldi2_tpu/ops/fb_lattice_pallas.py:413", 22, 13),
+}
 
 
 def fail(msg: str) -> None:
@@ -183,6 +213,151 @@ def kernel_checks(dev):
     return rows
 
 
+def close(name: str, got, want, atol, rtol: float) -> float:
+    """Fail unless |got − want| <= atol + rtol·|want| everywhere (``atol`` may
+    be a tensor that broadcasts); returns the max abs error."""
+    d = (got.float() - want.float()).abs()
+    worst = float((d / (atol + rtol * want.float().abs())).max())
+    err = float(d.max())
+    print(f"{name}: max_abs_err {err:.3e}, worst error / (atol + {rtol:g}*|want|) "
+          f"{worst:.3f}", flush=True)
+    if not math.isfinite(worst) or worst > 1.0:
+        fail(f"{name} disagrees with its plain version (worst ratio {worst})")
+    return err
+
+
+def close_log(name: str, got, want) -> float:
+    """Log-domain carries: the same slots dead (≈ NEG_INF) on both sides, the
+    live ones within LAT_TOL["log"]·max(1, |want|)."""
+    import torch
+
+    alive = want > -1e29
+    if not torch.equal(got > -1e29, alive):
+        fail(f"{name}: the kernel and the plain version disagree on which slots are dead")
+    return close(name, got[alive], want[alive], LAT_TOL["log"], LAT_TOL["log"])
+
+
+def latfb_bytes(name: str, t: int, b: int, a: int, k: int) -> int:
+    """Bytes a banded kernel must move: each fp32/int32 input read once, each
+    output written once, at the tensors' shapes."""
+    tba, tbk, tb = t * b * a, t * b * k, t * b
+    n = {"latfb_logz_fwd": 4 * tba + tb + tbk + tb,                          # in: obs w src dst act
+         "latfb_occupancies_bwd": 4 * tba + 2 * tb + tbk + b * k + b + tba,  # + residuals, γ out
+         "latfb_smbr_fwd": 5 * tba + tb + 2 * tbk + tb,                      # + arc_acc, aaccs out
+         "latfb_smbr_bwd": 5 * tba + 2 * tb + 2 * tbk + b * k + 2 * b + tba}[name]
+    return 4 * n
+
+
+def latfb_compare(dev, label: str, obs, lat, nf, ref, rows=None) -> dict:
+    """K7-K10 against their plain versions on one packed lattice batch: obs
+    [B,T,P], a TimeSyncLattice, num_frames [B] and reference pdfs [B,T] on the
+    card. The backward kernels take the plain forwards' residuals. Returns
+    {name: max_abs_err}; with ``rows``, also times each kernel and its plain
+    version and fills one row per kernel."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    b, t, _p = obs.shape
+    k, a = lat.num_slots, lat.src.shape[2]
+    band = FL._band(obs, lat)
+    active = FL._active_ts(t, nf)
+    arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
+    live = float(((band[3] > 0.5 * NEG_INF) * active).sum()) / (t * b * a)
+    print(f"latfb {label}: B={b} T={t} K={k} A={a}, {live:.1%} of the band is live "
+          f"arcs in active frames", flush=True)
+
+    def run(kernel, plain):
+        got = kernel()
+        torch.cuda.synchronize()
+        return got, plain()
+
+    calls, errs = {}, {}
+    calls["latfb_logz_fwd"] = (lambda: KC.logz_fwd(*band, active, k),
+                               lambda: KC.logz_fwd_plain(*band, active, k))
+    (ga, gn), (wa, wn) = run(*calls["latfb_logz_fwd"])
+
+    def logz_of(alphas, norms):
+        return torch.logsumexp(torch.clamp(alphas[-1] + lat.final, min=NEG_INF), 1) + norms[-1]
+
+    logz = logz_of(wa, wn)
+    errs["latfb_logz_fwd"] = max(
+        close_log(f"K7 {label} alphas", ga, wa),
+        close(f"K7 {label} norms", gn, wn, LAT_TOL["log"], LAT_TOL["log"]),
+        close(f"K7 {label} logZ", logz_of(ga, gn), logz, LAT_TOL["log"], LAT_TOL["log"]))
+
+    alpha0 = KC.initial_alpha(b, k, wa)
+    args = (*band, active, FL._prev(wa, alpha0), FL._prev(wn, wn.new_zeros(b))[:, :, None],
+            lat.final, logz[:, None].contiguous())
+    calls["latfb_occupancies_bwd"] = (lambda: KC.occupancies_bwd(*args),
+                                      lambda: KC.occupancies_bwd_plain(*args))
+    gamma, want = run(*calls["latfb_occupancies_bwd"])
+    errs["latfb_occupancies_bwd"] = close(f"K8 {label} gamma", gamma, want, LAT_TOL["abs"],
+                                          LAT_TOL["rel"])
+
+    calls["latfb_smbr_fwd"] = (lambda: KC.smbr_fwd(*band, active, arc_acc, k),
+                               lambda: KC.smbr_fwd_plain(*band, active, arc_acc, k))
+    (ga, gc, gn), (wa, wc, wn) = run(*calls["latfb_smbr_fwd"])
+    errs["latfb_smbr_fwd"] = max(
+        close_log(f"K9 {label} alphas", ga, wa),
+        close(f"K9 {label} aaccs", gc, wc, LAT_TOL["abs"], LAT_TOL["rel"]),
+        close(f"K9 {label} norms", gn, wn, LAT_TOL["log"], LAT_TOL["log"]))
+
+    total = torch.clamp(wa[-1] + lat.final, min=NEG_INF)
+    f = torch.sum(torch.softmax(total, 1) * wc[-1], 1)
+    args10 = (*band, active, arc_acc, FL._prev(wa, alpha0), FL._prev(wc, torch.zeros_like(wc[0])),
+              FL._prev(wn, wn.new_zeros(b))[:, :, None], lat.final, logz_of(wa, wn)[:, None].contiguous(),
+              f[:, None].contiguous())
+    calls["latfb_smbr_bwd"] = (lambda: KC.smbr_contribs_bwd(*args10),
+                               lambda: KC.smbr_contribs_bwd_plain(*args10))
+    contrib, want = run(*calls["latfb_smbr_bwd"])
+    errs["latfb_smbr_bwd"] = close(f"K10 {label} contrib", contrib, want,
+                                   LAT_TOL["abs"] * torch.clamp(f.abs(), min=1.0)[None, :, None],
+                                   LAT_TOL["rel"])
+    if rows is None:
+        return errs
+    for name, (kernel, plain) in calls.items():
+        kno, replaces, per_arc, per_slot = LATFB[name]
+        bms, by = bound_ms(latfb_bytes(name, t, b, a, k),
+                           [(t * b * (per_arc * a + per_slot * k), FP32_FLOPS)])
+        rows[name] = dict(
+            name=name, route="cuda", source="pykaldi2_tpu_torch/csrc/latfb.cu",
+            replaces=replaces, max_abs_err=errs[name], ms=timed(kernel, n=10),
+            plain_ms=timed(plain, n=2, warmup=1), bound_ms=bms, bound_by=by, library_ms=None)
+        r = rows[name]
+        print(f"kernel {kno} {name} ({label}, B={b} T={t} K={k} A={a}): {r['ms']:.4f} ms | "
+              f"plain {r['plain_ms']:.4f} ms | library n/a | bound {bms:.4f} ms ({by}, "
+              f"{latfb_bytes(name, t, b, a, k)} bytes)", flush=True)
+    return errs
+
+
+def latfb_probe(dev) -> dict:
+    """Phase 2, K7-K10: the bench's probe lattice (bench.py:626-647), fully
+    dense random bands at B=32, T=448, K=A=256 over 8952 pdfs; returns its
+    rows (errors, times, bounds)."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops.fb_lattice import TimeSyncLattice
+
+    b, t, k = SE_B, SE_T, SE_PROBE_KA
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    lat = TimeSyncLattice(
+        src=ints(k, (b, t, k)), dst=ints(k, (b, t, k)), pdf=ints(SENONES, (b, t, k)),
+        weight=torch.randn(b, t, k, generator=gen, device=dev) * 0.1,
+        final=torch.zeros(b, k, device=dev))
+    obs = torch.randn(b, t, SENONES, generator=gen, device=dev) * 0.1
+    nf = torch.full((b,), t, dtype=torch.int32, device=dev)
+    rows = {}
+    latfb_compare(dev, "probe", obs, lat, nf, ints(SENONES, (b, t)), rows)
+    return rows
+
+
 def blstm_grad_check(dev):
     """A 2-layer BLSTM (reversed direction, masks, dWh and the bf16 GEMM
     gradients) on the card against the same module on the CPU."""
@@ -240,8 +415,10 @@ def recurrence_sweep(dev):
                   flush=True)
 
 
-def write_corpus(root: str, n_utts: int = 128, seed: int = 0) -> dict:
-    """Synthetic 16 kHz corpus: wav.scp + a binary pdf-id alignment ark."""
+def write_corpus(root: str, n_utts: int = 128, seconds=(1.0, 3.0), num_labels: int = SENONES,
+                 seed: int = 0) -> dict:
+    """Synthetic 16 kHz corpus of random audio: wav.scp + a binary ark of
+    random pdf-ids below ``num_labels``."""
     import numpy as np
 
     from pykaldi2_tpu_torch.config import FrameOpts
@@ -256,11 +433,11 @@ def write_corpus(root: str, n_utts: int = 128, seed: int = 0) -> dict:
     ali = os.path.join(root, "ali.ark")
     with kaldi_io.ArkWriter(ali, kind="ivec") as w:
         for i in range(n_utts):
-            n = int(16000 * rng.uniform(1.0, 3.0))
+            n = int(16000 * rng.uniform(*seconds))
             path = os.path.join(root, "wav", f"utt{i:04d}.wav")
             write_wav(path, (rng.randn(n) * 3000).astype(np.float32))
             lines.append(f"utt{i:04d} {path}\n")
-            w.write(f"utt{i:04d}", rng.randint(0, SENONES, num_frames(n, fo)).astype(np.int32))
+            w.write(f"utt{i:04d}", rng.randint(0, num_labels, num_frames(n, fo)).astype(np.int32))
     scp = os.path.join(root, "wav.scp")
     with open(scp, "w") as f:
         f.writelines(lines)
@@ -402,12 +579,20 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str) -> dict:
           f"(frames/s / {FRAMES_PER_UTT:g}) | fenced step p50 {lat[49]:.3f} ms, p90 "
           f"{lat[89]:.3f} ms (100 steps) | peak {out['peak_mem_gib']:.2f} GiB", flush=True)
 
+    out["device_busy_share"] = profile_steps(lambda: step(batch, gen), 3, "profile")
+    return out
+
+
+def profile_steps(fn, n: int, what: str, top: int = 15) -> float:
+    """Profile n calls of fn; print the device busy share and the top kernels
+    by device time per call; returns the busy share."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            step(batch, gen)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel and memcpy rows only: CPU-op rows, and user annotations such as
@@ -418,13 +603,12 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str) -> dict:
            and not getattr(e, "is_user_annotation", False)
            and not e.key.startswith("Optimizer.")]
     busy_us = sum(_self_device_us(e) for e in evs)
-    print(f"profile, 3 steps: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+    print(f"{what}, {n} steps: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
           f"wall ({100 * busy_us / wall_us:.1f}%); top kernels by device time:", flush=True)
-    for e in sorted(evs, key=lambda e: -_self_device_us(e))[:15]:
-        print(f"  {_self_device_us(e) / 3e3:9.3f} ms/step  x{e.count // 3:<5d} "
+    for e in sorted(evs, key=lambda e: -_self_device_us(e))[:top]:
+        print(f"  {_self_device_us(e) / (n * 1e3):9.3f} ms/step  x{e.count // n:<5d} "
               f"{e.key[:90]}", flush=True)
-    out["device_busy_share"] = busy_us / wall_us
-    return out
+    return busy_us / wall_us
 
 
 def _self_device_us(event) -> float:
@@ -432,6 +616,154 @@ def _self_device_us(event) -> float:
     torch 2.4)."""
     v = getattr(event, "self_device_time_total", None)
     return float(event.self_cuda_time_total if v is None else v)
+
+
+def se_path(dev, root: str, ce_ckpt: str):
+    """Phase 7: ``bin/train_se.main -on_the_fly -decoder host`` at full width,
+    3 steps under MMI and 3 under sMBR. Returns ({banded kernel: launches in
+    the run that drives it}, {criterion: the run's first decoded batch as
+    (TimeSyncLattice, obs, num_frames)}, se.yaml, data.yaml)."""
+    import torch
+    import yaml
+
+    from pykaldi2_tpu_torch.bin import train_se
+    from pykaldi2_tpu_torch.frontend.fused import fused_fbank
+    from pykaldi2_tpu_torch.graph import HmmTopology, TransitionModel
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    tm = TransitionModel(HmmTopology.three_state(range(1, SE_PHONES + 1)))
+    corpus = write_corpus(os.path.join(root, "se_corpus"), SE_UTTS, (4.0, 4.5), tm.num_pdfs,
+                          seed=1)
+    mdl = os.path.join(root, "se_corpus", "final.mdl")
+    tm.write_kaldi(mdl)
+    data_yaml, cfg_yaml = os.path.join(root, "se_data.yaml"), os.path.join(root, "se.yaml")
+    with open(data_yaml, "w") as f:
+        yaml.safe_dump({**corpus, "feat": {"fbank": {"frame_opts": {"dither": 0.0},
+                                                     "mel_opts": {"num_bins": BINS}}}}, f)
+    with open(cfg_yaml, "w") as f:  # examples/librispeech/se.yaml, one 448-frame bucket of 32
+        yaml.safe_dump({
+            "model": {"type": "lstm", "hidden_size": H, "num_layers": LAYERS,
+                      "output_size": SENONES, "compute_dtype": "bfloat16"},
+            "optimizer": {"type": "momentum", "momentum": 0.9, "lr": 1e-5, "grad_clip": 5.0},
+            "trainer": {"batch_size": SE_B, "num_epochs": 1, "log_interval": 1, "seed": 777,
+                        "acoustic_scale": 0.1, "ce_ratio": 0.1,
+                        "bucket_boundaries": [SE_T]}}, f)
+    counted = {"fbank": fused_fbank, "lstm_fwd": L.lstm_fwd, "lstm_bwd": L.lstm_bwd,
+               "latfb_logz_fwd": KC.logz_fwd, "latfb_occupancies_bwd": KC.occupancies_bwd,
+               "latfb_smbr_fwd": KC.smbr_fwd, "latfb_smbr_bwd": KC.smbr_contribs_bwd}
+    need = {"mmi": ("latfb_logz_fwd", "latfb_occupancies_bwd"),
+            "smbr": ("latfb_smbr_fwd", "latfb_smbr_bwd")}
+    threads = min(os.cpu_count() or 1, 16)
+    first, current = {}, {}
+    decode = train_se.decode_batch
+
+    def capture(decoders, pool, obs, nf):  # keeps each run's first decoded batch
+        out = decode(decoders, pool, obs, nf)
+        first.setdefault(current["crit"], (out[0], obs, nf))
+        return out
+
+    launches = {}
+    train_se.decode_batch = capture
+    try:
+        for crit in ("mmi", "smbr"):
+            current["crit"] = crit
+            exp = os.path.join(root, f"se_{crit}")
+            for fn in counted.values():
+                fn.launches = 0
+            rc = train_se.main(
+                ["-config", cfg_yaml, "-data", data_yaml, "-exp_dir", exp, "-on_the_fly",
+                 "-decoder", "host", "-criterion", crit, "-seed_model", ce_ckpt,
+                 "-trans_model", mdl, "-beam", "10", "-lattice_beam", "4", "-max_active", "200",
+                 "-num_threads", str(threads)], device=str(dev))
+            torch.cuda.synchronize()
+            got = {name: fn.launches for name, fn in counted.items()}
+            if rc != 0:
+                fail(f"train_se.main -criterion {crit} returned {rc}")
+            print(f"SE {crit} path launches: {json.dumps(got)}", flush=True)
+            for name in ("fbank", "lstm_fwd", "lstm_bwd") + need[crit]:
+                if got[name] <= 0:
+                    fail(f"kernel {name} was not launched on the SE {crit} path")
+            launches.update({name: got[name] for name in need[crit]})
+            with open(os.path.join(exp, "metrics.jsonl")) as f:
+                steps = [r for r in map(json.loads, f) if "step" in r]
+            if len(steps) != SE_UTTS // SE_B or not all(math.isfinite(r["objective"])
+                                                         for r in steps):
+                fail(f"SE {crit} path: expected {SE_UTTS // SE_B} steps with finite "
+                     f"objectives, got {steps}")
+            for r in steps:
+                print(f"SE {crit} step {int(r['step'])}: objective {r['objective']:.5f} frame_acc "
+                      f"{r['frame_acc']:.4f} | lattice K {int(r['lat_k'])} A {int(r['lat_a'])} | forward "
+                      f"{r['forward_ms']:.1f} ms, host decode {r['decode_ms']:.1f} ms, pack "
+                      f"{r['pack_ms']:.1f} ms, wait {r['wait_ms']:.1f} ms, train step "
+                      f"{r['train_ms']:.1f} ms ({threads} decode threads)", flush=True)
+    finally:
+        train_se.decode_batch = decode
+    return launches, first, cfg_yaml, data_yaml
+
+
+def se_step_checks(dev, first: dict, cfg_yaml: str, data_yaml: str, ckpt: str) -> dict:
+    """Phase 7, after the runs: K7-K10 against their plain versions on the
+    sMBR run's first decoded batch (the main path's shapes, timed), then one
+    SE train step per criterion on that batch and lattice, fenced and
+    profiled. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
+
+    lat, obs_np, nf_np = first["smbr"]
+    lat = lat.to(dev)
+    nf = torch.from_numpy(nf_np).to(dev)
+    ref = torch.randint(0, SE_PHONES * 3, tuple(obs_np.shape[:2]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    rows = {}
+    latfb_compare(dev, "decoded", torch.from_numpy(obs_np).to(dev), lat, nf, ref, rows)
+
+    cfg = load_config(cfg_yaml)
+    cfg.data = load_data_config(data_yaml)
+    dataset, feat_fn, _ = build_frontend(cfg.data)
+    cfg.model.input_size = feat_fn.dim
+    loader = SeqDataloader(dataset, BucketSpec(boundaries=(SE_T,), batch_sizes=SE_B),
+                           shuffle=cfg.data.shuffle, seed=cfg.trainer.seed)
+    loader.set_epoch(0)
+    batch_np = next(iter(loader))
+    if not np.array_equal(batch_np["num_frames"], nf_np):
+        fail("the loader's first SE batch is not the one the captured lattice was decoded for")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items() if k != "utt_ids"}
+    log_prior = priors_from_counts(count_labels(dataset.labels.values(), cfg.model.output_size))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for crit in ("mmi", "smbr"):
+        model = build_model(cfg.model).to(dev)
+        load_checkpoint(ckpt, model)
+        _fwd, train = make_se_lattice_steps(
+            model, feat_fn, make_optimizer(cfg.optimizer, model.parameters()),
+            log_prior=log_prior, acoustic_scale=cfg.trainer.acoustic_scale,
+            ce_ratio=cfg.trainer.ce_ratio, criterion=crit)
+        torch.cuda.reset_peak_memory_stats(dev)
+        train(batch, lat, gen)
+        torch.cuda.synchronize()
+        lat_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = train(batch, lat, gen)
+            obj = float(m["objective"])
+            torch.cuda.synchronize()
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(obj):
+            fail(f"SE {crit} train step reached objective {obj}")
+        print(f"SE {crit} train step (B={SE_B}, T={SE_T}, K={lat.num_slots}, "
+              f"A={lat.src.shape[2]}): fenced {', '.join(f'{x:.2f}' for x in lat_ms)} ms, "
+              f"objective {obj:.5f}, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        profile_steps(lambda: train(batch, lat, gen), 2, f"SE {crit} train step profile", top=12)
+    return rows
 
 
 def main() -> int:
@@ -454,26 +786,44 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = D.resolve_device("cuda")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pykaldi2_tpu_torch.decode.decoder import build_native
+
     t0 = time.perf_counter()
-    reports = D.build_all(force=True)
-    print(f"built {', '.join(reports)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # g++ for the decoder beside the nvcc builds
+        native = pool.submit(build_native, True)
+        reports = D.build_all(force=True)
+        native.result()
+    print(f"built {', '.join(reports)} and the native decoder in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows = kernel_checks(dev)
+    probe = latfb_probe(dev)
     blstm_grad_check(dev)
     root = os.path.join(HERE, "build", "chip_smoke")
+    shutil.rmtree(root, ignore_errors=True)  # the trainers resume from checkpoints they find
     exp, cfg_yaml, data_yaml, launches = main_path(dev, root)
     eval_check(dev, exp, cfg_yaml, data_yaml)
     step_timing(dev, cfg_yaml, data_yaml)
     recurrence_sweep(dev)
+    se_launches, first, se_cfg, se_data = se_path(dev, root, os.path.join(exp, "model.0.npz"))
+    decoded = se_step_checks(dev, first, se_cfg, se_data,
+                             os.path.join(root, "se_smbr", "model.0.npz"))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi, flush=True)
+    # K7-K10: times and bounds at the decoded batch (the main path's shapes),
+    # the error the larger of the probe's and the decoded batch's
+    for name, r in decoded.items():
+        rows[name] = dict(r, max_abs_err=max(r["max_abs_err"], probe[name]["max_abs_err"]))
+    launches.update(se_launches)
     for name, n in launches.items():
         rows[name]["launches"] = n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -63,6 +63,97 @@ def make_ce_train_step(model: NnetAM, feat_fn: FeaturePipeline,
     return step
 
 
+def make_se_lattice_steps(
+    model: NnetAM,
+    feat_fn: FeaturePipeline,
+    optimizer: Optimizer,
+    log_prior=None,
+    acoustic_scale: float = 0.1,
+    den_scale: float = 1.0,
+    drop_frames: bool = True,
+    ce_ratio: float = 0.0,
+    criterion: str = "mmi",
+    pdf_to_phone=None,
+    silence=None,
+    obs_transfer_dtype: str = "bfloat16",
+) -> Tuple[Callable, Callable]:
+    """On-the-fly denominator-lattice training (the reference's signature
+    mode): returns (forward_fn, train_fn). Port of pykaldi2_tpu/trainer.py:
+    248-377 on one device.
+
+    forward_fn(batch) → scaled obs [B, T, P] in ``obs_transfer_dtype`` (the
+    host decodes lattices from it): the eval pipeline (no dither, no
+    dropout), without gradients. "bfloat16" halves the device→host copy;
+    the loss-side forward recomputes obs in fp32, so training math is
+    unaffected.
+
+    train_fn(batch, lattice, generator) → metrics dict(objective, frame_acc,
+    frames) of device scalars; applies the lattice update in place,
+    recomputing the forward with dither and dropout. ``lattice`` is a
+    TimeSyncLattice on the batch's device. criterion: mmi (num alignment −
+    lattice logZ) or smbr/mpfe (expected frame accuracy over the decoded
+    lattice, Kaldi LatticeForwardBackwardMpeVariants semantics); ce_ratio
+    adds the CE f-smoothing term.
+    """
+    from pykaldi2_tpu_torch.ops.fb_lattice import (lattice_expected_accuracy_ts,
+                                                   mmi_objective_lattice_ts)
+    from pykaldi2_tpu_torch.ops.se_losses import acoustic_scores
+
+    crit = {"mpe": "mpfe"}.get(criterion, criterion)
+    if crit not in ("mmi", "smbr", "mpfe"):
+        raise ValueError(f"unknown criterion {criterion!r}")
+    if crit == "mpfe" and pdf_to_phone is None:
+        raise ValueError("mpfe needs a pdf_to_phone mapping")
+    dev = next(model.parameters()).device
+    lp = None if log_prior is None else torch.as_tensor(log_prior, dtype=torch.float32,
+                                                        device=dev)
+    p2p = None if pdf_to_phone is None else torch.as_tensor(pdf_to_phone, device=dev).long()
+    sil = None if silence is None else silence.to(dev)
+    out_dtype = getattr(torch, obs_transfer_dtype)
+    eval_feat_fn = feat_fn.for_eval()
+
+    @torch.no_grad()
+    def forward_fn(batch: dict) -> Tensor:
+        logits = model(eval_feat_fn(batch), batch["mask"])
+        return acoustic_scores(logits, lp, acoustic_scale).to(out_dtype)
+
+    def train_fn(batch: dict, lattice, generator: Optional[torch.Generator] = None) -> dict:
+        optimizer.zero_grad()
+        mask = batch["mask"].to(torch.float32)
+        nf = batch["num_frames"]
+        labels = batch["labels"].long()
+        feats = feat_fn(batch, generator=generator)
+        logits = model(feats, mask, train=True, generator=generator)
+        obs = acoustic_scores(logits, lp, acoustic_scale)
+        sup = mask * (labels >= 0)
+        if crit == "mmi":
+            obj_rows = mmi_objective_lattice_ts(obs, labels, lattice, nf, sup,
+                                                drop_frames, den_scale)
+        else:
+            ref, level = labels, "pdf"
+            if crit == "mpfe":
+                ref, level = p2p[torch.clamp(labels, min=0)], "phone"
+            obj_rows = lattice_expected_accuracy_ts(obs, lattice, torch.clamp(ref, min=0),
+                                                    nf, level, p2p, sil)
+        # zero-length padded rows would contribute num − logZ(dead) ≈ +1e30
+        obj = torch.sum(torch.where(nf > 0, obj_rows, torch.zeros_like(obj_rows)))
+        count = torch.sum(sup)
+        denom = torch.clamp(count, min=1.0)
+        loss = -obj / denom
+        if ce_ratio > 0.0:
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+            loss = loss - ce_ratio * torch.sum(ll * sup) / denom
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            correct = torch.sum((torch.argmax(logits, -1) == labels) * sup)
+            return {"objective": obj.detach() / denom, "frame_acc": correct / denom,
+                    "frames": count}
+
+    return forward_fn, train_fn
+
+
 def make_eval_step(model: NnetAM, feat_fn: FeaturePipeline) -> Callable:
     """step(batch) → (sum_nll, frames, correct) — for dev-loss tracking."""
     eval_fn = feat_fn.for_eval()  # deterministic: no dither at eval

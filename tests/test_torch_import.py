@@ -28,6 +28,9 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "pykaldi2_tpu" or m.startswith("pykaldi2_tpu."))
 assert not bad, bad
+for n in ("graph", "graph.compile", "graph.transition_model", "decode.decoder",
+          "ops.fb_lattice", "ops.fb_lattice_cuda", "ops.se_losses", "bin.train_se"):
+    assert "pykaldi2_tpu_torch." + n in names, n
 print(len(names))
 """
 
@@ -36,7 +39,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 35  # every module of the port was imported
 
 
 _BAD_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|optax|pykaldi2_tpu)(\.|\s|$)", re.M)
@@ -72,15 +75,16 @@ def test_resolve_device_without_cuda_raises(monkeypatch):
 
 
 def test_kernel_sources_are_cuda_with_plain_c_interface():
-    """K1-K3 are hand-written CUDA C++ bound through ctypes: no PyTorch
-    headers, no library kernels inside."""
-    for name in ("fbank", "lstm"):
+    """K1-K3 and K7-K10 are hand-written CUDA C++ bound through ctypes: no
+    PyTorch headers, no library kernels inside."""
+    from pykaldi2_tpu_torch import device as D
+
+    assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb")
+    for name in D.KERNEL_SOURCES:
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in src
         for banned in ("torch/extension.h", "cublas", "cudnn", "ATen"):
             assert banned not in src, (name, banned)
-    from pykaldi2_tpu_torch import device as D
-
     assert "arch=compute_90a,code=sm_90a" in D.NVCC_FLAGS
     assert D.BUILD_DIR == ROOT / "build" / "kernels"
 
