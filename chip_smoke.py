@@ -8,8 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. hold each kernel against its plain PyTorch version at the flagship
      shapes (B=64 rows of 80-frame chunks, 80 fbank bins, H=1024), with the
      tolerances below, and time kernel, plain version and library call;
-     K7-K10 likewise on the probe lattice of bench.py:626-647 (B=32, T=448,
-     K=A=256, 8952 pdfs); then a small BLSTM's outputs and gradients on the
+     K4 for Kaldi's mfcc_hires options and its 13-cepstra default, K5/K6 at
+     the BLSTMP shapes (P=512) in both directions; K7-K10 likewise on the
+     probe lattice of bench.py:626-647 (B=32, T=448, K=A=256, 8952 pdfs);
+     then a small BLSTM's and a small BLSTMP's outputs and gradients on the
      card against the CPU;
   3. write a synthetic wave corpus (128 utterances of 1-3 s, random pdf-ids
      below 8952) and run the port's ``bin/train_ce.main`` on it at full width
@@ -20,7 +22,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      same model on the CPU (plain versions) on a small input;
   5. train-step timing and a short profile of the device time by kernel;
   6. K2/K3 time against sequence length and batch (per-step vs fixed cost);
-  7. on-the-fly lattice sequence training: a corpus of 96 whole utterances
+  7. BLSTMP: ``bin/train_ce.main`` on phase 3's corpus with the BLSTMP
+     4x1024/512 configuration of bench.py:185-205 (80-bin fbank, 8952
+     senones, batch 64, 80-frame chunks, momentum 0.9, lr 0.01, clip 5):
+     K1, K5 and K6 must launch (K5/K6 8 times a step) and K2/K3 not; then
+     phase 4's eval check and phase 5's timing for that model;
+  8. the MFCC recipe: ``bin/compute_cmvn_stats.main`` over phase 3's corpus
+     with Kaldi's mfcc_hires options, ``bin/compute_feats.main`` (one
+     utterance held against K4's plain version on the CPU), then
+     ``bin/train_ce.main`` with those features and stats on the flagship
+     4x1024 LSTM; K4 must launch in each, K2/K3 in training; phase 5's
+     timing for that step;
+  9. on-the-fly lattice sequence training: a corpus of 96 whole utterances
      of 4-4.5 s (up to 448 frames) with random pdf-ids of the 41-phone
      3-state model of bench.py:366-371 (123 pdfs), and ``bin/train_se.main
      -on_the_fly -decoder host`` seeded from phase 3's checkpoint at full
@@ -49,12 +62,23 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 B, T, H, LAYERS, SENONES, BINS = 64, 80, 1024, 4, 8952, 80
+PROJ = 512  # BLSTMP 4x1024/512 (bench.py:185-205)
+# Kaldi's mfcc_hires.conf (egs/librispeech/s5/conf): 40 bins, 40 cepstra,
+# low 20 Hz, high -400 Hz, no energy; and Kaldi's default 13/23 with energy
+MFCC_HIRES = {"num_ceps": 40, "use_energy": False,
+              "mel_opts": {"num_bins": 40, "low_freq": 20.0, "high_freq": -400.0}}
+MFCC_DEFAULT = {"num_ceps": 13, "use_energy": True, "mel_opts": {"num_bins": 23}}
 FRAMES_PER_UTT = 1230.0  # LibriSpeech-960 mean utterance length (bench.py:36)
 # kernel vs plain: fp32 summation order (+ one bf16 ulp for the saved gates);
 # card vs CPU: cuBLAS bf16 GEMMs against exact-product emulation, through
 # layers whose bf16 rounding of h can flip on a tie
+# K4: the fbank's log-mel error carried through the DCT (a sum of 40
+# log-mels with weights up to ~0.2, times the lifter, up to ~11.5 at c12);
+# K5/K6 vs plain: K2/K3's tolerances (the same bf16 operands and fp32
+# sums; hfull is bf16 like the gates)
 TOL = {"fbank": 2e-3, "lstm_fwd": 2e-3, "lstm_fwd_gates": 8e-3, "lstm_bwd": 1e-3,
-       "eval_logits": 5e-2, "blstm_out": 1e-2, "blstm_grad_rel": 1e-2}
+       "eval_logits": 5e-2, "blstm_out": 1e-2, "blstm_grad_rel": 1e-2, "mfcc": 1e-2,
+       "lstmp_fwd": 2e-3, "lstmp_fwd_bf16": 8e-3, "lstmp_bwd": 1e-3}
 # K7-K10 vs plain: the same fp32 arithmetic, but the kernels add each slot's
 # arcs with shared-memory atomics, in another order. Logs (alphas, norms,
 # logZ) agree to 1e-4·max(1, |x|). gamma = exp(lg) agrees to 1e-5 + 1e-4·|γ|:
@@ -205,12 +229,147 @@ def kernel_checks(dev):
     ds = torch.tensor(rng.randn(7, 70, 64).astype(np.float32), device=dev)
     check("K3 lstm_bwd at T=7 B=70 H=64", L.lstm_bwd(ds, want[2], want[1], mk, ws),
           L.lstm_bwd_plain(ds, want[2], want[1], mk, ws), TOL["lstm_bwd"])
+    return rows
+
+
+def mfcc_opts(spec: dict):
+    """MfccOpts with dither 0 from one of the option sets above."""
+    from pykaldi2_tpu_torch.config import FrameOpts, MelOpts, MfccOpts
+
+    spec = dict(spec)
+    return MfccOpts(frame_opts=FrameOpts(dither=0.0), mel_opts=MelOpts(**spec.pop("mel_opts")),
+                    **spec)
+
+
+def mfcc_checks(dev) -> dict:
+    """Phase 2, K4: fused MFCC against its plain version on 64 raw 80-frame
+    chunks, for the hires and the 13-cepstra-with-energy options; the row
+    (times, bound) is the hires one, the error the larger of the two."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.data.dataloader import chunk_samples
+    from pykaldi2_tpu_torch.frontend import fused as F
+
+    rng = np.random.RandomState(5)
+    errs, row = [], None
+    for label, spec in (("hires 40/40", MFCC_HIRES), ("13/23 + energy", MFCC_DEFAULT)):
+        opts = mfcc_opts(spec)
+        fo = opts.frame_opts
+        s = chunk_samples(T, fo)
+        wave = torch.tensor((rng.randn(B, s) * 4000).astype(np.float32), device=dev)
+        got = F.fused_mfcc(wave, opts)
+        torch.cuda.synchronize()
+        errs.append(check(f"K4 mfcc {label}", got, F.fused_mfcc_plain(wave, opts), TOL["mfcc"]))
+        if row is None:
+            w, k = fo.window_size, fo.padded_window_size // 2
+            m, c, nrows = opts.mel_opts.num_bins, opts.num_ceps, B * T
+            flops = 2 * nrows * w * k * 2 + 2 * nrows * k * m + 2 * nrows * m * c
+            nbytes = 4 * (B * s + T * w + w + 2 * w * k + k * m + m * c + nrows * c)
+            bms, by = bound_ms(nbytes, [(flops, FP32_FLOPS)])
+            row = dict(name="mfcc", route="cuda", source="pykaldi2_tpu_torch/csrc/fbank.cu",
+                       replaces="pykaldi2_tpu/frontend/fused.py:125",
+                       ms=timed(lambda: F.fused_mfcc(wave, opts)),
+                       plain_ms=timed(lambda: F.fused_mfcc_plain(wave, opts)),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+    row["max_abs_err"] = max(errs)
+    return {"mfcc": row}
+
+
+def lstmp_checks(dev) -> dict:
+    """Phase 2, K5/K6: the LSTMP recurrence of one (layer, direction) at
+    T=80, B=64, H=1024, P=512, with padded rows, in both directions (the
+    reversed one runs time-flipped inputs, as models/lstm.py does), against
+    the plain versions; then a B=70 (two launches), H=256, P=128 case."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    rng = np.random.RandomState(2)
+    xp = torch.tensor((rng.randn(T, B, 4 * H) * 0.5).astype(np.float32), device=dev)
+    wh = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (PROJ, 4 * H)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    wp = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (H, PROJ)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    mask = torch.ones(T, B, device=dev)
+    mask[50:, 3] = 0.0
+    mask[20:, 11] = 0.0
+    dys = torch.tensor((rng.randn(T, B, PROJ) * 0.1).astype(np.float32), device=dev)
+    fwd_errs, bwd_errs = [], []
+    for label, x_in, m_in in (("forward", xp, mask),
+                              ("reversed", xp.flip(0).contiguous(), mask.flip(0).contiguous())):
+        ys, cs, gates, hfull = L.lstm_proj_fwd(x_in, wh, wp, m_in)
+        torch.cuda.synchronize()
+        yp, cp, gp, hp = L.lstm_proj_fwd_plain(x_in, wh, wp, m_in)
+        fwd_errs += [check(f"K5 lstmp_fwd {label} ys", ys, yp, TOL["lstmp_fwd"]),
+                     check(f"K5 lstmp_fwd {label} cs", cs, cp, TOL["lstmp_fwd"])]
+        check(f"K5 lstmp_fwd {label} gates (bf16)", gates, gp, TOL["lstmp_fwd_bf16"])
+        check(f"K5 lstmp_fwd {label} hfull (bf16)", hfull, hp, TOL["lstmp_fwd_bf16"])
+        dg, dm = L.lstm_proj_bwd(dys, gp, cp, m_in, wh, wp)
+        torch.cuda.synchronize()
+        wg, wm = L.lstm_proj_bwd_plain(dys, gp, cp, m_in, wh, wp)
+        bwd_errs += [check(f"K6 lstmp_bwd {label} dgates", dg, wg, TOL["lstmp_bwd"]),
+                     check(f"K6 lstmp_bwd {label} dhpm", dm, wm, TOL["lstmp_bwd"])]
+    # odd shapes: B=70 takes two launches of the 64-row kernel
+    xs = torch.tensor((rng.randn(7, 70, 1024) * 0.5).astype(np.float32), device=dev)
+    whs = torch.tensor(rng.uniform(-0.1, 0.1, (128, 1024)).astype(np.float32),
+                       device=dev).to(torch.bfloat16)
+    wps = torch.tensor(rng.uniform(-0.1, 0.1, (256, 128)).astype(np.float32),
+                       device=dev).to(torch.bfloat16)
+    mk = torch.ones(7, 70, device=dev)
+    mk[4:, 0] = 0.0
+    got = L.lstm_proj_fwd(xs, whs, wps, mk)
+    want = L.lstm_proj_fwd_plain(xs, whs, wps, mk)
+    torch.cuda.synchronize()
+    check("K5 lstmp_fwd ys at T=7 B=70 H=256 P=128", got[0], want[0], TOL["lstmp_fwd"])
+    ds = torch.tensor(rng.randn(7, 70, 128).astype(np.float32), device=dev)
+    check("K6 lstmp_bwd at T=7 B=70 H=256 P=128",
+          L.lstm_proj_bwd(ds, want[2], want[1], mk, whs, wps)[0],
+          L.lstm_proj_bwd_plain(ds, want[2], want[1], mk, whs, wps)[0], TOL["lstmp_bwd"])
+
+    # times at the BLSTMP shapes; the yardstick is one cuDNN LSTMP direction
+    cudnn = torch.nn.LSTM(H, H, proj_size=PROJ).to(device=dev, dtype=torch.bfloat16)
+    cudnn.flatten_parameters()
+    x_lib = torch.randn(T, B, H, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lib_fwd = timed(lambda: cudnn(x_lib))
+    x_req = x_lib.clone().requires_grad_(True)
+    for prm in cudnn.parameters():
+        prm.requires_grad_(False)
+    out, _ = cudnn(x_req)
+    d_out = torch.randn_like(out)
+    lib_bwd = timed(lambda: torch.autograd.grad(out, x_req, d_out, retain_graph=True))
+    yp, cp, gp, hp = L.lstm_proj_fwd_plain(xp, wh, wp, mask)
+    h4 = 4 * H
+    f_flops = 2 * (T - 1) * B * PROJ * h4 + 2 * T * B * H * PROJ   # t = 0 has hp = 0
+    f_bytes = (4 * T * B * h4 + 2 * PROJ * h4 + 2 * H * PROJ + 4 * T * B
+               + 4 * T * B * PROJ + 4 * T * B * H + 2 * T * B * h4 + 2 * T * B * H)
+    b_flops = 2 * T * B * PROJ * H + 2 * (T - 1) * B * h4 * PROJ   # no dhp after t = 0
+    b_bytes = (4 * T * B * PROJ + 2 * T * B * h4 + 4 * T * B * H + 4 * T * B
+               + 2 * PROJ * h4 + 2 * H * PROJ + 4 * T * B * h4 + 4 * T * B * PROJ)
+    rows = {}
+    for name, err, fn, plain, flops, nbytes, lib, line in (
+            ("lstm_proj_fwd", max(fwd_errs), lambda: L.lstm_proj_fwd(xp, wh, wp, mask),
+             lambda: L.lstm_proj_fwd_plain(xp, wh, wp, mask), f_flops, f_bytes, lib_fwd, 384),
+            ("lstm_proj_bwd", max(bwd_errs), lambda: L.lstm_proj_bwd(dys, gp, cp, mask, wh, wp),
+             lambda: L.lstm_proj_bwd_plain(dys, gp, cp, mask, wh, wp), b_flops, b_bytes,
+             lib_bwd, 458)):
+        bms, by = bound_ms(nbytes, [(flops, BF16_FLOPS)])
+        rows[name] = dict(
+            name=name, route="cuda", source="pykaldi2_tpu_torch/csrc/lstm.cu",
+            replaces=f"pykaldi2_tpu/ops/lstm_pallas.py:{line}", max_abs_err=err,
+            ms=timed(fn), plain_ms=timed(plain, n=3, warmup=1), bound_ms=bms, bound_by=by,
+            library_ms=lib)
+    return rows
+
+
+def print_rows(rows: dict) -> None:
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
-    return rows
 
 
 def close(name: str, got, want, atol, rtol: float) -> float:
@@ -358,21 +517,22 @@ def latfb_probe(dev) -> dict:
     return rows
 
 
-def blstm_grad_check(dev):
-    """A 2-layer BLSTM (reversed direction, masks, dWh and the bf16 GEMM
-    gradients) on the card against the same module on the CPU."""
+def blstm_grad_check(dev, proj: int = 0):
+    """A 2-layer BLSTM, or BLSTMP with ``proj`` (reversed direction, masks,
+    dWh, dWp and the bf16 GEMM gradients) on the card against the same module
+    on the CPU."""
     import torch
 
     from pykaldi2_tpu_torch.models.lstm import LSTMStack
 
     gen = torch.Generator().manual_seed(3)
-    cpu = LSTMStack(80, 256, 2, bidirectional=True, generator=gen)
-    card = LSTMStack(80, 256, 2, bidirectional=True).to(dev)
+    cpu = LSTMStack(80, 256, 2, bidirectional=True, proj_size=proj, generator=gen)
+    card = LSTMStack(80, 256, 2, bidirectional=True, proj_size=proj).to(dev)
     card.load_state_dict(cpu.state_dict())
     x = torch.randn(16, 30, 80, generator=gen)
     mask = torch.ones(16, 30)
     mask[3, 17:] = 0.0
-    w = torch.randn(16, 30, 512, generator=gen)
+    w = torch.randn(16, 30, cpu.output_size, generator=gen)
     outs = []
     for mod, d in ((cpu, "cpu"), (card, dev)):
         y = mod(x.to(d), mask.to(d))
@@ -380,13 +540,14 @@ def blstm_grad_check(dev):
         outs.append((y.detach().cpu(), {k: p.grad.cpu() for k, p in mod.named_parameters()}))
     torch.cuda.synchronize()
     (y_cpu, g_cpu), (y_card, g_card) = outs
-    check("BLSTM forward, card vs CPU plain path", y_card, y_cpu, TOL["blstm_out"])
+    what = f"BLSTMP (P={proj})" if proj else "BLSTM"
+    check(f"{what} forward, card vs CPU plain path", y_card, y_cpu, TOL["blstm_out"])
     worst = max(float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max())
                 for k in g_cpu)
-    print(f"BLSTM gradients, card vs CPU: max error relative to each tensor's "
+    print(f"{what} gradients, card vs CPU: max error relative to each tensor's "
           f"max {worst:.3e} (tolerance {TOL['blstm_grad_rel']:g})", flush=True)
     if not math.isfinite(worst) or worst > TOL["blstm_grad_rel"]:
-        fail(f"BLSTM gradients disagree: {worst}")
+        fail(f"{what} gradients disagree: {worst}")
 
 
 def recurrence_sweep(dev):
@@ -444,13 +605,167 @@ def write_corpus(root: str, n_utts: int = 128, seconds=(1.0, 3.0), num_labels: i
     return {"wav_scp": scp, "label_ark": ali}
 
 
+def counted() -> dict:
+    """Every kernel wrapper by its row name, K1-K10; each counts its launches."""
+    from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_mfcc
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    return {"fbank": fused_fbank, "lstm_fwd": L.lstm_fwd, "lstm_bwd": L.lstm_bwd,
+            "mfcc": fused_mfcc, "lstm_proj_fwd": L.lstm_proj_fwd,
+            "lstm_proj_bwd": L.lstm_proj_bwd, "latfb_logz_fwd": KC.logz_fwd,
+            "latfb_occupancies_bwd": KC.occupancies_bwd, "latfb_smbr_fwd": KC.smbr_fwd,
+            "latfb_smbr_bwd": KC.smbr_contribs_bwd}
+
+
+def zero_counts() -> None:
+    for fn in counted().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counted().items()}
+
+
+def train_ce_run(dev, what: str, cfg_yaml: str, data_yaml: str, exp: str) -> tuple:
+    """``bin/train_ce.main`` with the counts zeroed just before and read just
+    after; fails unless it wrote finite step losses and a checkpoint.
+    Returns (launches, number of steps)."""
+    from pykaldi2_tpu_torch.bin import train_ce
+
+    zero_counts()
+    rc = train_ce.main(["-config", cfg_yaml, "-data", data_yaml, "-exp_dir", exp],
+                       device=str(dev))
+    launches = read_counts()
+    if rc != 0:
+        fail(f"{what}: train_ce.main returned {rc}")
+    print(f"{what} launches: {json.dumps(launches)}", flush=True)
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if "step" in r]
+    if not steps or not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"{what} wrote no finite step losses: {steps}")
+    print(f"{what}: {len(steps)} steps, losses {[round(r['loss'], 4) for r in steps]}",
+          flush=True)
+    if not os.path.exists(os.path.join(exp, "model.0.npz")):
+        fail(f"{what} wrote no checkpoint")
+    return launches, len(steps)
+
+
+def need_launches(what: str, launches: dict, positive=(), zero=()) -> None:
+    for name in positive:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {what}")
+    for name in zero:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched {launches[name]} times on the {what}")
+
+
+def blstmp_path(dev, root: str, data_yaml: str) -> tuple:
+    """Phase 7: the BLSTMP 4x1024/512 CE run (bench.py:185-205) on phase 3's
+    corpus; returns (launches, cfg_yaml)."""
+    import yaml
+
+    cfg_yaml = os.path.join(root, "blstmp.yaml")
+    with open(cfg_yaml, "w") as f:
+        yaml.safe_dump({
+            "model": {"type": "blstm", "hidden_size": H, "num_layers": LAYERS,
+                      "proj_size": PROJ, "output_size": SENONES, "compute_dtype": "bfloat16"},
+            "optimizer": {"type": "momentum", "momentum": 0.9, "lr": 0.01, "grad_clip": 5.0},
+            "trainer": {"batch_size": B, "chunk_len": T, "num_epochs": 1,
+                        "log_interval": 1, "seed": 777}}, f)
+    exp = os.path.join(root, "exp_blstmp")
+    launches, steps = train_ce_run(dev, "BLSTMP CE path", cfg_yaml, data_yaml, exp)
+    need_launches("BLSTMP CE path", launches, positive=("fbank",),
+                  zero=("lstm_fwd", "lstm_bwd"))
+    per_step = 2 * LAYERS  # one K5 and one K6 launch per (layer, direction)
+    for name in ("lstm_proj_fwd", "lstm_proj_bwd"):
+        if launches[name] != per_step * steps:
+            fail(f"kernel {name} launched {launches[name]} times in {steps} BLSTMP steps, "
+                 f"expected {per_step} a step")
+    eval_check(dev, exp, cfg_yaml, data_yaml, "BLSTMP")
+    step_timing(dev, cfg_yaml, data_yaml, "BLSTMP")
+    return launches, cfg_yaml
+
+
+def mfcc_path(dev, root: str, data_yaml: str, ce_yaml: str) -> dict:
+    """Phase 8: the MFCC recipe (compute_cmvn_stats, compute_feats, train_ce)
+    on phase 3's corpus; returns the launches summed over the phase."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from pykaldi2_tpu_torch.bin import compute_cmvn_stats, compute_feats
+    from pykaldi2_tpu_torch.data import kaldi_io
+    from pykaldi2_tpu_torch.data.wav import read_wav
+    from pykaldi2_tpu_torch.frontend.fused import fused_mfcc_plain
+
+    with open(data_yaml) as f:
+        corpus = {k: v for k, v in yaml.safe_load(f).items() if k != "feat"}
+    hires = {"frame_opts": {"dither": 0.0}, **MFCC_HIRES}
+    mfcc_yaml = os.path.join(root, "mfcc_data.yaml")
+    with open(mfcc_yaml, "w") as f:
+        yaml.safe_dump({**corpus, "feat": {"type": "mfcc", "mfcc": hires}}, f)
+    total = dict.fromkeys(counted(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    stats = os.path.join(root, "cmvn_mfcc_hires.mat")
+    zero_counts()
+    t0 = time.perf_counter()
+    if compute_cmvn_stats.main(["-data", mfcc_yaml, "-output", stats], device=str(dev)) != 0:
+        fail("compute_cmvn_stats.main failed")
+    got = read_counts()
+    print(f"compute_cmvn_stats (mfcc_hires): {time.perf_counter() - t0:.2f} s, launches "
+          f"{json.dumps(got)}", flush=True)
+    need_launches("compute_cmvn_stats path", got, positive=("mfcc",))
+    add(got)
+    from pykaldi2_tpu_torch.pipeline import load_cmvn_stats
+
+    st = load_cmvn_stats(stats)
+    if st.shape != (2, 41) or not np.isfinite(st).all() or st[0, -1] <= 0:
+        fail(f"compute_cmvn_stats wrote stats of shape {st.shape}, count {st[0, -1]}")
+
+    ark = os.path.join(root, "mfcc_hires.ark")
+    zero_counts()
+    t0 = time.perf_counter()
+    if compute_feats.main(["-data", mfcc_yaml, "-out", ark], device=str(dev)) != 0:
+        fail("compute_feats.main failed")
+    got = read_counts()
+    print(f"compute_feats (mfcc_hires): {time.perf_counter() - t0:.2f} s, launches "
+          f"{json.dumps(got)}", flush=True)
+    need_launches("compute_feats path", got, positive=("mfcc",))
+    add(got)
+    feats = dict(kaldi_io.read_ark(ark))
+    uid, path = next(iter(kaldi_io.read_scp(corpus["wav_scp"])))
+    wave, _ = read_wav(path)
+    want = fused_mfcc_plain(torch.from_numpy(wave.astype(np.float32)[None]),
+                            mfcc_opts(MFCC_HIRES))[0]
+    if feats[uid].shape != tuple(want.shape):
+        fail(f"compute_feats wrote {feats[uid].shape} for {uid}, expected {tuple(want.shape)}")
+    check(f"compute_feats {uid} (card, padded) vs K4's plain version on the CPU",
+          torch.from_numpy(feats[uid]), want, TOL["mfcc"])
+
+    train_yaml = os.path.join(root, "mfcc_train.yaml")
+    with open(train_yaml, "w") as f:
+        yaml.safe_dump({**corpus, "feat": {"type": "mfcc", "mfcc": hires,
+                                           "cmvn": {"stats_path": stats}}}, f)
+    got, _ = train_ce_run(dev, "MFCC CE path", ce_yaml, train_yaml,
+                          os.path.join(root, "exp_mfcc"))
+    need_launches("MFCC CE path", got, positive=("mfcc", "lstm_fwd", "lstm_bwd"),
+                  zero=("fbank",))
+    add(got)
+    step_timing(dev, ce_yaml, train_yaml, "MFCC")
+    return total
+
+
 def main_path(dev, root: str):
     """Phase 3: the port's CLI at full width; returns (exp_dir, launches)."""
     import yaml
-
-    from pykaldi2_tpu_torch.bin import train_ce
-    from pykaldi2_tpu_torch.frontend.fused import fused_fbank
-    from pykaldi2_tpu_torch.ops.lstm_cuda import lstm_bwd, lstm_fwd
 
     corpus = write_corpus(os.path.join(root, "corpus"))
     data_yaml, cfg_yaml = os.path.join(root, "data.yaml"), os.path.join(root, "ce.yaml")
@@ -465,33 +780,12 @@ def main_path(dev, root: str):
             "trainer": {"batch_size": B, "chunk_len": T, "num_epochs": 1,
                         "log_interval": 1, "seed": 777}}, f)
     exp = os.path.join(root, "exp")
-    fused_fbank.launches = lstm_fwd.launches = lstm_bwd.launches = 0
-    rc = train_ce.main(["-config", cfg_yaml, "-data", data_yaml, "-exp_dir", exp],
-                       device=str(dev))
-    import torch
-
-    torch.cuda.synchronize()
-    launches = {"fbank": fused_fbank.launches, "lstm_fwd": lstm_fwd.launches,
-                "lstm_bwd": lstm_bwd.launches}
-    if rc != 0:
-        fail(f"train_ce.main returned {rc}")
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    with open(os.path.join(exp, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    steps = [r for r in recs if "step" in r]
-    if not steps or not all(math.isfinite(r["loss"]) for r in steps):
-        fail(f"main path wrote no finite step losses: {steps}")
-    print(f"main path: {len(steps)} steps, losses "
-          f"{[round(r['loss'], 4) for r in steps]}", flush=True)
-    if not os.path.exists(os.path.join(exp, "model.0.npz")):
-        fail("main path wrote no checkpoint")
+    launches, _ = train_ce_run(dev, "main path", cfg_yaml, data_yaml, exp)
+    need_launches("main path", launches, positive=("fbank", "lstm_fwd", "lstm_bwd"))
     return exp, cfg_yaml, data_yaml, launches
 
 
-def eval_check(dev, exp: str, cfg_yaml: str, data_yaml: str):
+def eval_check(dev, exp: str, cfg_yaml: str, data_yaml: str, what: str = "eval"):
     """Phase 4: eval forward of the checkpoint on the card vs the CPU plain path."""
     import torch
 
@@ -514,7 +808,7 @@ def eval_check(dev, exp: str, cfg_yaml: str, data_yaml: str):
     loss = float(nll) / max(float(cnt), 1.0)
     if not math.isfinite(loss) or float(cnt) <= 0:
         fail(f"eval pass gave loss {loss} over {float(cnt)} frames")
-    print(f"eval: loss {loss:.4f} over {int(cnt)} frames, frame_acc "
+    print(f"{what}: loss {loss:.4f} over {int(cnt)} frames, frame_acc "
           f"{float(cor) / float(cnt):.4f}", flush=True)
     # small input: the same model on the card (kernels) and on the CPU (plain)
     small = {k: v[:2] for k, v in batch.items()}
@@ -527,10 +821,10 @@ def eval_check(dev, exp: str, cfg_yaml: str, data_yaml: str):
         want = model_cpu(feat_fn.for_eval()(small_cpu), small_cpu["mask"])
     if tuple(got.shape) != (2, T, SENONES) or not bool(torch.isfinite(got).all()):
         fail(f"eval logits have shape {tuple(got.shape)} or non-finite values")
-    check("eval logits, card vs CPU plain path", got.cpu(), want, TOL["eval_logits"])
+    check(f"{what} logits, card vs CPU plain path", got.cpu(), want, TOL["eval_logits"])
 
 
-def step_timing(dev, cfg_yaml: str, data_yaml: str) -> dict:
+def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step") -> dict:
     """Phase 5: fenced train-step time on one fixed batch, then a short profile."""
     import torch
 
@@ -574,12 +868,12 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str) -> dict:
            "utt_per_sec": B * T / dt / FRAMES_PER_UTT,
            "fenced_step_ms_p50": lat[49], "fenced_step_ms_p90": lat[89],
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-    print(f"train step: {out['step_ms']:.3f} ms mean over {n} queued steps | "
+    print(f"{what}: {out['step_ms']:.3f} ms mean over {n} queued steps | "
           f"{out['frames_per_sec']:.0f} frames/s | {out['utt_per_sec']:.2f} utt/s "
           f"(frames/s / {FRAMES_PER_UTT:g}) | fenced step p50 {lat[49]:.3f} ms, p90 "
           f"{lat[89]:.3f} ms (100 steps) | peak {out['peak_mem_gib']:.2f} GiB", flush=True)
 
-    out["device_busy_share"] = profile_steps(lambda: step(batch, gen), 3, "profile")
+    out["device_busy_share"] = profile_steps(lambda: step(batch, gen), 3, f"{what} profile")
     return out
 
 
@@ -623,14 +917,10 @@ def se_path(dev, root: str, ce_ckpt: str):
     3 steps under MMI and 3 under sMBR. Returns ({banded kernel: launches in
     the run that drives it}, {criterion: the run's first decoded batch as
     (TimeSyncLattice, obs, num_frames)}, se.yaml, data.yaml)."""
-    import torch
     import yaml
 
     from pykaldi2_tpu_torch.bin import train_se
-    from pykaldi2_tpu_torch.frontend.fused import fused_fbank
     from pykaldi2_tpu_torch.graph import HmmTopology, TransitionModel
-    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
-    from pykaldi2_tpu_torch.ops import lstm_cuda as L
 
     tm = TransitionModel(HmmTopology.three_state(range(1, SE_PHONES + 1)))
     corpus = write_corpus(os.path.join(root, "se_corpus"), SE_UTTS, (4.0, 4.5), tm.num_pdfs,
@@ -649,9 +939,6 @@ def se_path(dev, root: str, ce_ckpt: str):
             "trainer": {"batch_size": SE_B, "num_epochs": 1, "log_interval": 1, "seed": 777,
                         "acoustic_scale": 0.1, "ce_ratio": 0.1,
                         "bucket_boundaries": [SE_T]}}, f)
-    counted = {"fbank": fused_fbank, "lstm_fwd": L.lstm_fwd, "lstm_bwd": L.lstm_bwd,
-               "latfb_logz_fwd": KC.logz_fwd, "latfb_occupancies_bwd": KC.occupancies_bwd,
-               "latfb_smbr_fwd": KC.smbr_fwd, "latfb_smbr_bwd": KC.smbr_contribs_bwd}
     need = {"mmi": ("latfb_logz_fwd", "latfb_occupancies_bwd"),
             "smbr": ("latfb_smbr_fwd", "latfb_smbr_bwd")}
     threads = min(os.cpu_count() or 1, 16)
@@ -669,15 +956,13 @@ def se_path(dev, root: str, ce_ckpt: str):
         for crit in ("mmi", "smbr"):
             current["crit"] = crit
             exp = os.path.join(root, f"se_{crit}")
-            for fn in counted.values():
-                fn.launches = 0
+            zero_counts()
             rc = train_se.main(
                 ["-config", cfg_yaml, "-data", data_yaml, "-exp_dir", exp, "-on_the_fly",
                  "-decoder", "host", "-criterion", crit, "-seed_model", ce_ckpt,
                  "-trans_model", mdl, "-beam", "10", "-lattice_beam", "4", "-max_active", "200",
                  "-num_threads", str(threads)], device=str(dev))
-            torch.cuda.synchronize()
-            got = {name: fn.launches for name, fn in counted.items()}
+            got = read_counts()
             if rc != 0:
                 fail(f"train_se.main -criterion {crit} returned {rc}")
             print(f"SE {crit} path launches: {json.dumps(got)}", flush=True)
@@ -803,14 +1088,21 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows = kernel_checks(dev)
+    rows.update(mfcc_checks(dev))
+    rows.update(lstmp_checks(dev))
+    print_rows(rows)
     probe = latfb_probe(dev)
     blstm_grad_check(dev)
+    blstm_grad_check(dev, proj=128)
     root = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(root, ignore_errors=True)  # the trainers resume from checkpoints they find
     exp, cfg_yaml, data_yaml, launches = main_path(dev, root)
     eval_check(dev, exp, cfg_yaml, data_yaml)
     step_timing(dev, cfg_yaml, data_yaml)
     recurrence_sweep(dev)
+    proj_launches, _ = blstmp_path(dev, root, data_yaml)
+    launches.update({k: proj_launches[k] for k in ("lstm_proj_fwd", "lstm_proj_bwd")})
+    launches["mfcc"] = mfcc_path(dev, root, data_yaml, cfg_yaml)["mfcc"]
     se_launches, first, se_cfg, se_data = se_path(dev, root, os.path.join(exp, "model.0.npz"))
     decoded = se_step_checks(dev, first, se_cfg, se_data,
                              os.path.join(root, "se_smbr", "model.0.npz"))
@@ -828,7 +1120,7 @@ def main() -> int:
         rows[name]["launches"] = n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}),
+    print(json.dumps({"kernels": [{k: rows[name][k] for k in keys} for name in counted()]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Kaldi-parity feature front end in torch, with the fused fbank kernel (K1).
+"""Kaldi-parity feature front end in torch, with the fused fbank (K1) and
+fused MFCC (K4) kernels.
 
 Port of pykaldi2_tpu/frontend (reference behavior: kaldi/src/feat/). All
 framing/windowing/DFT/mel work is batched fp32 torch ops; the mel matrix and
@@ -13,6 +14,7 @@ from pykaldi2_tpu_torch.frontend.window import (
 )
 from pykaldi2_tpu_torch.frontend.mel import mel_banks, mel_scale, inverse_mel_scale
 from pykaldi2_tpu_torch.frontend.fbank import compute_fbank, fbank_dim
+from pykaldi2_tpu_torch.frontend.mfcc import compute_mfcc
 from pykaldi2_tpu_torch.frontend.cmvn import (
     acc_cmvn_stats,
     apply_cmvn,

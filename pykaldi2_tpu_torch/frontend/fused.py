@@ -1,10 +1,19 @@
-"""Fused log-mel fbank: kernel K1 (``csrc/fbank.cu``) and its plain version.
+"""Fused log-mel fbank and MFCC: kernels K1 and K4 (``csrc/fbank.cu``) and
+their plain versions.
 
-Replaces pykaldi2_tpu/frontend/fused.py:_kernel (the Pallas fused fbank,
+K1 replaces pykaldi2_tpu/frontend/fused.py:_kernel (the Pallas fused fbank,
 called through ``fused_fbank``). Per frame row: DC removal over the real
 window, pre-emphasis, window, real DFT as cos/sin products, power, mel
 product, log with a FLT_EPSILON floor; dither must be 0 and the options the
 standard log-power fbank without energy, as in the reference.
+
+K4 replaces :_mfcc_kernel (called through ``fused_mfcc``): K1's steps, the
+raw log-energy of each row (after DC removal, before pre-emphasis; floored
+at FLT_EPSILON, then at log(energy_floor) when that is > 0), and the DCT
+product with the lifter folded into the matrix; column 0 becomes the
+log-energy when ``use_energy``. Dither must be 0. As in the reference, the
+energy is always the raw one: ``FeaturePipeline`` sends ``use_energy`` with
+``raw_energy`` false to ``compute_mfcc`` instead.
 
 On the H100 the kernel is bound by fp32 FMA throughput (no TF32, no tensor
 cores: the front end is fp32-exact); see the note at the top of
@@ -12,9 +21,9 @@ cores: the front end is fp32-exact); see the note at the top of
 the kernel: it reads the waveform through the ``_frame_indices`` table
 (the Mosaic limit that kept framing outside the TPU kernel does not apply).
 
-``fused_fbank`` takes the plain version only for tensors on the CPU; on a
-CUDA tensor it launches the kernel or raises. ``fused_fbank.launches``
-counts kernel launches.
+``fused_fbank`` and ``fused_mfcc`` take the plain version only for tensors
+on the CPU; on a CUDA tensor they launch their kernel or raise.
+``fused_fbank.launches`` and ``fused_mfcc.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,10 +35,11 @@ import numpy as np
 import torch
 
 from pykaldi2_tpu_torch import device as D
-from pykaldi2_tpu_torch.config import FbankOpts
+from pykaldi2_tpu_torch.config import FbankOpts, MfccOpts
 from pykaldi2_tpu_torch.frontend import window as W
 from pykaldi2_tpu_torch.frontend.fbank import _dft_matrices
 from pykaldi2_tpu_torch.frontend.mel import mel_banks
+from pykaldi2_tpu_torch.frontend.mfcc import dct_matrix, lifter_coeffs
 
 
 def _check_opts(opts: FbankOpts) -> None:
@@ -76,15 +86,16 @@ def _constants(opts: FbankOpts, n_samples: int, device: torch.device):
     return out
 
 
-def fused_fbank_plain(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
-    """Plain torch version of K1: the same steps on the same constants."""
-    _check_opts(opts)
-    fo = opts.frame_opts
-    b, s = wave.shape
-    idx, win, cos_w, sin_w, mel_t = _constants(opts, s, wave.device)
-    frames = wave.to(torch.float32)[:, idx.long()]                    # [B, T, W]
+def _centred_frames(wave: torch.Tensor, idx: torch.Tensor, fo) -> torch.Tensor:
+    """[B, S] → [B, T, W] frames through the index table, DC removed."""
+    frames = wave.to(torch.float32)[:, idx.long()]
     if fo.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
+    return frames
+
+
+def _logmel(frames: torch.Tensor, fo, win, cos_w, sin_w, mel_t) -> torch.Tensor:
+    """Centred frames → pre-emphasis, window, DFT, power, mel, log."""
     if fo.preemph_coeff != 0.0:
         prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
         frames = frames - fo.preemph_coeff * prev
@@ -93,6 +104,14 @@ def fused_fbank_plain(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
     im = x @ sin_w
     mel = (re * re + im * im) @ mel_t
     return torch.log(torch.clamp(mel, min=W.FLT_EPSILON))
+
+
+def fused_fbank_plain(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
+    """Plain torch version of K1: the same steps on the same constants."""
+    _check_opts(opts)
+    idx, win, cos_w, sin_w, mel_t = _constants(opts, wave.shape[1], wave.device)
+    frames = _centred_frames(wave, idx, opts.frame_opts)
+    return _logmel(frames, opts.frame_opts, win, cos_w, sin_w, mel_t)
 
 
 def fused_fbank(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
@@ -129,6 +148,86 @@ def fused_fbank(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
 fused_fbank.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4: fused MFCC
+# ---------------------------------------------------------------------------
+
+
+def _check_mfcc_opts(opts: MfccOpts) -> None:
+    if opts.frame_opts.dither != 0.0:
+        raise ValueError("fused kernel expects dither pre-applied (or 0)")
+
+
+def _mfcc_constants(opts: MfccOpts, n_samples: int, device: torch.device):
+    """K1's constants for the MFCC's frame and mel options, plus the lifted
+    DCT matrix transposed to [M, C]."""
+    fb_like = FbankOpts(frame_opts=opts.frame_opts, mel_opts=opts.mel_opts)
+    key = ("mfcc", _opts_key(fb_like), opts.num_ceps, opts.cepstral_lifter, n_samples,
+           str(device))
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        dct = dct_matrix(opts.num_ceps, opts.mel_opts.num_bins)       # [C, M]
+        if opts.cepstral_lifter != 0.0:
+            dct = dct * lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)[:, None]
+        dct_t = torch.as_tensor(np.ascontiguousarray(dct.T), dtype=torch.float32,
+                                device=device)
+        hit = (*_constants(fb_like, n_samples, device), dct_t)
+        _CONSTANTS[key] = hit
+        while len(_CONSTANTS) > 16:
+            _CONSTANTS.popitem(last=False)
+    return hit
+
+
+def fused_mfcc_plain(wave: torch.Tensor, opts: MfccOpts) -> torch.Tensor:
+    """Plain torch version of K4: the same steps on the same constants."""
+    _check_mfcc_opts(opts)
+    idx, win, cos_w, sin_w, mel_t, dct_t = _mfcc_constants(opts, wave.shape[1], wave.device)
+    frames = _centred_frames(wave, idx, opts.frame_opts)
+    if opts.use_energy:  # raw energy: after DC removal, before pre-emphasis
+        log_e = torch.log(torch.clamp((frames * frames).sum(-1), min=W.FLT_EPSILON))
+        if opts.energy_floor > 0.0:
+            log_e = torch.clamp(log_e, min=float(np.log(opts.energy_floor)))
+    ceps = _logmel(frames, opts.frame_opts, win, cos_w, sin_w, mel_t) @ dct_t
+    if opts.use_energy:
+        ceps = torch.cat([log_e[..., None], ceps[..., 1:]], dim=-1)
+    return ceps
+
+
+def fused_mfcc(wave: torch.Tensor, opts: MfccOpts) -> torch.Tensor:
+    """[B, S] fp32 waveform → [B, T, num_ceps] MFCC (dither must be 0)."""
+    _check_mfcc_opts(opts)
+    if wave.dim() != 2:
+        raise ValueError(f"fused_mfcc expects a [B, S] waveform, got {tuple(wave.shape)}")
+    if wave.device.type == "cpu":
+        return fused_mfcc_plain(wave, opts)
+    if wave.device.type != "cuda":
+        raise ValueError(f"fused_mfcc: unsupported device {wave.device}")
+    if wave.dtype != torch.float32 or not wave.is_contiguous():
+        raise ValueError("fused_mfcc: the kernel takes a contiguous float32 waveform")
+    fo = opts.frame_opts
+    b, s = wave.shape
+    t_frames = W.num_frames(s, fo)
+    nb, nc = opts.mel_opts.num_bins, opts.num_ceps
+    out = torch.empty((b, t_frames, nc), dtype=torch.float32, device=wave.device)
+    if b * t_frames == 0:
+        return out
+    idx, win, cos_w, sin_w, mel_t, dct_t = _mfcc_constants(opts, s, wave.device)
+    log_efloor = float(np.log(opts.energy_floor)) if opts.energy_floor > 0.0 else -np.inf
+    lib = _lib()
+    with torch.cuda.device(wave.device):
+        rc = lib.pk2_mfcc(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
+                          D.ptr(mel_t), D.ptr(dct_t), D.ptr(out), b, s, t_frames,
+                          fo.window_size, cos_w.shape[1], nb, nc, int(fo.remove_dc_offset),
+                          float(fo.preemph_coeff), float(W.FLT_EPSILON),
+                          int(opts.use_energy), log_efloor, D.current_stream_ptr(wave.device))
+    D.check_launch(rc, "MFCC kernel (K4)")
+    fused_mfcc.launches += 1
+    return out
+
+
+fused_mfcc.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = D.load_kernel_lib("fbank")
     if not getattr(lib, "_pk2_typed", False):
@@ -136,5 +235,7 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_fbank.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                   ci, cf, cf, vp]
         lib.pk2_fbank.restype = ci
+        lib.pk2_mfcc.argtypes = [vp] * 8 + [ci] * 8 + [cf, cf, ci, cf, vp]
+        lib.pk2_mfcc.restype = ci
         lib._pk2_typed = True
     return lib

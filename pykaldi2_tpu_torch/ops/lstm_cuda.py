@@ -1,25 +1,35 @@
-"""LSTM recurrence: kernels K2/K3 (``csrc/lstm.cu``), plain versions, autograd.
+"""LSTM recurrence: kernels K2/K3 and K5/K6 (``csrc/lstm.cu``), plain
+versions, autograd.
 
-Counterpart of pykaldi2_tpu/ops/lstm_pallas.py:135-330. Replaces
-``_fwd_kernel`` (K2) and ``_bwd_kernel`` (K3): per step, gates = xp_t +
-h·Wh with bf16 operands and an fp32 sum, sigmoid/tanh gates, an fp32 cell,
-and a masked carry (padded frames keep their state, which also makes the
-reversed direction right for right-padded batches); the backward runs in
-reverse time and emits the pre-activation gate gradients. dWh is one
-bf16 GEMM outside the kernels, as in the reference (lstm_pallas.py:318-325).
+Counterpart of pykaldi2_tpu/ops/lstm_pallas.py. Replaces ``_fwd_kernel``
+(K2) and ``_bwd_kernel`` (K3): per step, gates = xp_t + h·Wh with bf16
+operands and an fp32 sum, sigmoid/tanh gates, an fp32 cell, and a masked
+carry (padded frames keep their state, which also makes the reversed
+direction right for right-padded batches); the backward runs in reverse
+time and emits the pre-activation gate gradients. dWh is one bf16 GEMM
+outside the kernels, as in the reference (lstm_pallas.py:318-325).
+
+K5/K6 replace ``_fwd_proj_kernel`` and ``_bwd_proj_kernel``, the projected
+LSTM (LSTMP, lstm_pallas.py:384-599): the recurrence reads hp = bf16(h_full)
+·Wp [B, P] and Wh is [P, 4H]; the masked carry is on hp and c. The forward
+also saves h_full in bf16; the backward also emits the masked dhp. dWh =
+Σ hp_{t-1}ᵀ·dgates and dWp = Σ h_fullᵀ·dhp_m are two bf16 GEMMs with fp32
+results outside the kernels (lstm_pallas.py:580-593).
 
 On the H100 the kernels are bound by the per-step latency of exchanging the
 new state across the grid, not by bytes or flops; see the note at the top of
 ``csrc/lstm.cu`` for the persistent cooperative design (Wh slices resident in
 shared memory, mma.sync, one grid barrier per step).
 
-Streams stay fp32 at every size: the JAX package's bf16 stream mode
-(``_stream_dtype``) existed only for the TPU's VMEM budget. ``gates`` are
-kept in bf16 for the backward, as in the reference.
+Streams stay fp32 at every size: the JAX package's bf16 stream modes
+(``_stream_dtype``, ``_stream_dtype_proj``) and its batch tiling
+(``_tile_b_proj``) existed only for the TPU's VMEM budget. ``gates`` (and
+``hfull``) are kept in bf16 for the backward, as in the reference.
 
 Each wrapper takes the plain version only for CPU tensors; on CUDA tensors
-it launches its kernel or raises. ``lstm_fwd.launches`` and
-``lstm_bwd.launches`` count kernel launches.
+it launches its kernel or raises. ``lstm_fwd.launches``,
+``lstm_bwd.launches``, ``lstm_proj_fwd.launches`` and
+``lstm_proj_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -143,6 +153,70 @@ def lstm_bwd_plain(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor,
     return torch.stack(out)
 
 
+def lstm_proj_fwd_plain(xp: Tensor, wh_b: Tensor, wp_b: Tensor, mask: Tensor
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """xp [T,B,4H] f32, wh_b [P,4H] bf16, wp_b [H,P] bf16, mask [T,B] f32 →
+    ys [T,B,P] f32 (hp), cs [T,B,H] f32, gates [T,B,4H] bf16 (activated
+    i, f, g, o), hfull [T,B,H] bf16 (the unmasked h_full)."""
+    t_len, b, h4 = xp.shape
+    h = h4 // 4
+    whf, wpf = wh_b.float(), wp_b.float()
+    hp = xp.new_zeros(b, wh_b.shape[0])
+    c = xp.new_zeros(b, h)
+    ys, cs, gates, hfull = [], [], [], []
+    for t in range(t_len):
+        pre = xp[t] + hp.to(torch.bfloat16).float() @ whf
+        i = torch.sigmoid(pre[:, :h])
+        f = torch.sigmoid(pre[:, h:2 * h])
+        g = torch.tanh(pre[:, 2 * h:3 * h])
+        o = torch.sigmoid(pre[:, 3 * h:])
+        c_new = f * c + i * g
+        h_full = o * torch.tanh(c_new)
+        proj = h_full.to(torch.bfloat16).float() @ wpf
+        m = mask[t][:, None]
+        hp = m * proj + (1.0 - m) * hp
+        c = m * c_new + (1.0 - m) * c
+        ys.append(hp)
+        cs.append(c)
+        gates.append(torch.cat([i, f, g, o], dim=-1).to(torch.bfloat16))
+        hfull.append(h_full.to(torch.bfloat16))
+    return torch.stack(ys), torch.stack(cs), torch.stack(gates), torch.stack(hfull)
+
+
+def lstm_proj_bwd_plain(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor,
+                        wh_b: Tensor, wp_b: Tensor) -> Tuple[Tensor, Tensor]:
+    """dys [T,B,P] f32, gates [T,B,4H] bf16, cs [T,B,H] f32, mask [T,B],
+    wh_b [P,4H] bf16, wp_b [H,P] bf16 → dgates [T,B,4H] f32 (pre-activation
+    gate gradients), dhpm [T,B,P] f32 (the masked dhp, for dWp)."""
+    t_len, b, p = dys.shape
+    h = cs.shape[-1]
+    whT, wpT = wh_b.float().t(), wp_b.float().t()
+    dhp_s = dys.new_zeros(b, p)
+    dc_s = dys.new_zeros(b, h)
+    out, out_m = [None] * t_len, [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        m = mask[t][:, None]
+        dhp_total = dhp_s + dys[t]
+        dhp_m = m * dhp_total
+        dc_in = dc_s
+        dh_full = dhp_m.to(torch.bfloat16).float() @ wpT
+        gt = gates[t].float()
+        i, f, g, o = gt[:, :h], gt[:, h:2 * h], gt[:, 2 * h:3 * h], gt[:, 3 * h:]
+        c = cs[t]
+        c_prev = cs[t - 1] if t > 0 else torch.zeros_like(c)
+        tanh_c = torch.tanh(c)
+        do = dh_full * tanh_c
+        dc = dh_full * o * (1.0 - tanh_c * tanh_c) + m * dc_in
+        di, df, dg = dc * g, dc * c_prev, dc * i
+        dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
+                            dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
+        out[t], out_m[t] = dgates, dhp_m
+        dhp_rec = dgates.to(torch.bfloat16).float() @ whT
+        dhp_s = dhp_rec + (1.0 - m) * dhp_total
+        dc_s = dc * f + (1.0 - m) * dc_in
+    return torch.stack(out), torch.stack(out_m)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -158,6 +232,10 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_lstm_bwd.restype = ci
         lib.pk2_lstm_max_batch.argtypes = []
         lib.pk2_lstm_max_batch.restype = ci
+        lib.pk2_lstmp_fwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.pk2_lstmp_fwd.restype = ci
+        lib.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+        lib.pk2_lstmp_bwd.restype = ci
         lib._pk2_typed = True
     return lib
 
@@ -253,6 +331,95 @@ def lstm_bwd(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor, wh_b: Tensor)
 lstm_bwd.launches = 0
 
 
+def _check_proj(h: int, p: int):
+    # the LSTM kernels' limit on H, and P columns in 16-wide k-steps; P <= H
+    # keeps the P/8 projection column groups within the H/8 CTAs, and the
+    # shared memory of the weight slices and the staged state within a block's
+    # 227 KB up to H = P = 1024
+    _check_hidden(h)
+    if p < 16 or p % 16 or p > h:
+        raise ValueError(f"LSTMP kernels take a projection size that is a multiple of 16 "
+                         f"and at most the hidden size {h}, got {p}")
+
+
+def _off(t: Tensor, elems: int) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() + elems * t.element_size())
+
+
+def lstm_proj_fwd(xp: Tensor, wh_b: Tensor, wp_b: Tensor, mask: Tensor
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K5. Same contract as ``lstm_proj_fwd_plain``."""
+    if xp.device.type == "cpu":
+        return lstm_proj_fwd_plain(xp, wh_b, wp_b, mask)
+    t_len, b, h4 = xp.shape
+    h, p = h4 // 4, wh_b.shape[0]
+    dev = xp.device
+    _check("xp", xp, torch.float32, (t_len, b, h4), dev)
+    _check("wh", wh_b, torch.bfloat16, (p, h4), dev)
+    _check("wp", wp_b, torch.bfloat16, (h, p), dev)
+    _check("mask", mask, torch.float32, (t_len, b), dev)
+    _check_proj(h, p)
+    lib = _lib()
+    ys = torch.empty((t_len, b, p), dtype=torch.float32, device=dev)
+    cs = torch.empty((t_len, b, h), dtype=torch.float32, device=dev)
+    gates = torch.empty((t_len, b, h4), dtype=torch.bfloat16, device=dev)
+    hfull = torch.empty((t_len, b, h), dtype=torch.bfloat16, device=dev)
+    max_b = lib.pk2_lstm_max_batch()
+    with torch.cuda.device(dev):
+        stream = D.current_stream_ptr(dev)
+        for b0 in range(0, b, max_b):
+            nb = min(max_b, b - b0)
+            hpbuf = torch.empty((nb, p), dtype=torch.bfloat16, device=dev)
+            rc = lib.pk2_lstmp_fwd(
+                _off(xp, b0 * h4), D.ptr(wh_b), D.ptr(wp_b), _off(mask, b0), _off(ys, b0 * p),
+                _off(cs, b0 * h), _off(gates, b0 * h4), _off(hfull, b0 * h), D.ptr(hpbuf),
+                t_len, nb, b, h, p, stream)
+            D.check_launch(rc, "LSTMP forward kernel (K5)")
+            lstm_proj_fwd.launches += 1
+    return ys, cs, gates, hfull
+
+
+lstm_proj_fwd.launches = 0
+
+
+def lstm_proj_bwd(dys: Tensor, gates: Tensor, cs: Tensor, mask: Tensor, wh_b: Tensor,
+                  wp_b: Tensor) -> Tuple[Tensor, Tensor]:
+    """K6. Same contract as ``lstm_proj_bwd_plain``."""
+    if dys.device.type == "cpu":
+        return lstm_proj_bwd_plain(dys, gates, cs, mask, wh_b, wp_b)
+    t_len, b, p = dys.shape
+    h = cs.shape[-1]
+    h4 = 4 * h
+    dev = dys.device
+    _check("dys", dys, torch.float32, (t_len, b, p), dev)
+    _check("gates", gates, torch.bfloat16, (t_len, b, h4), dev)
+    _check("cs", cs, torch.float32, (t_len, b, h), dev)
+    _check("mask", mask, torch.float32, (t_len, b), dev)
+    _check("wh", wh_b, torch.bfloat16, (p, h4), dev)
+    _check("wp", wp_b, torch.bfloat16, (h, p), dev)
+    _check_proj(h, p)
+    lib = _lib()
+    dgates = torch.empty((t_len, b, h4), dtype=torch.float32, device=dev)
+    dhpm = torch.empty((t_len, b, p), dtype=torch.float32, device=dev)
+    max_b = lib.pk2_lstm_max_batch()
+    with torch.cuda.device(dev):
+        stream = D.current_stream_ptr(dev)
+        for b0 in range(0, b, max_b):
+            nb = min(max_b, b - b0)
+            dgbuf = torch.empty((nb, h4), dtype=torch.bfloat16, device=dev)
+            dpbuf = torch.empty((nb, p), dtype=torch.bfloat16, device=dev)
+            rc = lib.pk2_lstmp_bwd(
+                _off(dys, b0 * p), _off(gates, b0 * h4), _off(cs, b0 * h), _off(mask, b0),
+                D.ptr(wh_b), D.ptr(wp_b), _off(dgates, b0 * h4), _off(dhpm, b0 * p),
+                D.ptr(dgbuf), D.ptr(dpbuf), t_len, nb, b, h, p, stream)
+            D.check_launch(rc, "LSTMP backward kernel (K6)")
+            lstm_proj_bwd.launches += 1
+    return dgates, dhpm
+
+
+lstm_proj_bwd.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -283,3 +450,38 @@ class LstmSeq(torch.autograd.Function):
             h_prev = torch.cat([ys.new_zeros(1, b, h), ys[:-1]], dim=0)
             dwh = mm_bf16(h_prev.reshape(-1, h).t(), dgates.reshape(-1, 4 * h))
         return dgates, dwh, None
+
+
+class LstmProjSeq(torch.autograd.Function):
+    """``LstmProjSeq.apply(xp, wh, wp, mask) -> ys``: xp [T,B,4H] (input
+    projections plus bias), wh [P,4H], wp [H,P], mask [T,B] or [T,B,1] → ys
+    [T,B,P] (the projected states). Same contract as ``lstm_seq_proj_pallas``
+    (lstm_pallas.py:549-599): Wh and Wp are rounded to bf16, gradients flow
+    to xp (the gate gradients), wh and wp."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, wp, mask):
+        mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
+        wh_b = wh.to(torch.bfloat16).contiguous()
+        wp_b = wp.to(torch.bfloat16).contiguous()
+        ys, cs, gates, hfull = lstm_proj_fwd(xp.to(torch.float32).contiguous(), wh_b, wp_b,
+                                             mask2)
+        ctx.save_for_backward(wh_b, wp_b, mask2, ys, cs, gates, hfull)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        wh_b, wp_b, mask2, ys, cs, gates, hfull = ctx.saved_tensors
+        dgates, dhpm = lstm_proj_bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2,
+                                     wh_b, wp_b)
+        t_len, b, p = ys.shape
+        h = cs.shape[-1]
+        dwh = dwp = None
+        if ctx.needs_input_grad[1]:
+            # dWh = sum_t hp_{t-1}^T dgates_t
+            hp_prev = torch.cat([ys.new_zeros(1, b, p), ys[:-1]], dim=0)
+            dwh = mm_bf16(hp_prev.reshape(-1, p).t(), dgates.reshape(-1, 4 * h))
+        if ctx.needs_input_grad[2]:
+            # dWp = sum_t h_full_t^T dhp_m,t
+            dwp = mm_bf16(hfull.reshape(-1, h).t(), dhpm.reshape(-1, p))
+        return dgates, dwh, dwp, None

@@ -2,8 +2,8 @@
 
 Port of pykaldi2_tpu/pipeline.py:30-277 without on-device simulation. The
 trainer calls it on the raw waveform batch already on the device, so
-framing, fbank, CMVN, deltas and splicing run there; the standard log-power
-fbank goes through the fused kernel K1.
+framing, fbank or MFCC, CMVN, deltas and splicing run there; the standard
+log-power fbank goes through the fused kernel K1 and MFCC through K4.
 """
 
 from __future__ import annotations
@@ -20,11 +20,12 @@ from pykaldi2_tpu_torch.frontend import (
     add_deltas,
     apply_cmvn,
     compute_fbank,
+    compute_mfcc,
     splice_frames,
     utterance_cmvn,
 )
 from pykaldi2_tpu_torch.frontend.cmvn import cmvn_mean_std
-from pykaldi2_tpu_torch.frontend.fused import fused_fbank
+from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_mfcc
 
 
 def base_feature_dim(cfg: FeatConfig) -> int:
@@ -72,6 +73,10 @@ class FeaturePipeline:
             cmvn_stats = load_cmvn_stats(cfg.cmvn.stats_path)
         if cmvn_stats is not None:
             self.mean, self.scale = cmvn_mean_std(cmvn_stats, cfg.cmvn.norm_vars)
+        # (device, mean, scale): the global stats on the batch's device, made
+        # once; a copy from host memory every step would make the host wait
+        # for the device before it can queue the next step
+        self._cmvn_on = None
         # per-speaker CMVN: host-side table; rows reach the device through
         # batch["cmvn_mean"/"cmvn_scale"] attached by batch_extras
         self.speaker_cmvn = None
@@ -143,6 +148,13 @@ class FeaturePipeline:
         return (fb.frame_opts.dither == 0.0 and not fb.use_energy
                 and fb.use_log_fbank and fb.use_power)
 
+    def _use_fused_mfcc(self) -> bool:
+        """K4 takes MFCC with dither 0, unless the energy is the windowed one
+        (use_energy without raw_energy): the reference's _use_fused_mfcc,
+        pipeline.py:196-202."""
+        mf = self.cfg.mfcc
+        return mf.frame_opts.dither == 0.0 and not (mf.use_energy and not mf.raw_energy)
+
     def __call__(self, batch: dict, generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
         cfg = self.cfg
@@ -162,17 +174,25 @@ class FeaturePipeline:
                 # as the reference sends dithered batches to XLA — the
                 # kernel draws no random numbers
                 feats = compute_fbank(wave, cfg.fbank, generator=generator)
+        elif warp_sel is not None:
+            feats = compute_mfcc(batch["wave"], cfg.mfcc, generator=generator,
+                                 mel_weights=torch.as_tensor(self.warp_bank),
+                                 warp_select=warp_sel.long())
+        elif self._use_fused_mfcc():
+            feats = fused_mfcc(batch["wave"], cfg.mfcc)
         else:
-            raise NotImplementedError(
-                "MFCC features need kernel K4, which comes with the MFCC slice "
-                "(ROADMAP.md Queue 2)")
+            feats = compute_mfcc(batch["wave"], cfg.mfcc, generator=generator)
         mask = batch.get("mask")
         if "cmvn_mean" in batch:
             # per-speaker CMVN rows (SpeakerCmvn via batch_extras)
             feats = apply_cmvn(feats, batch["cmvn_mean"][:, None, :],
                                batch["cmvn_scale"][:, None, :], cfg.cmvn.norm_means)
         elif self.mean is not None:
-            feats = apply_cmvn(feats, self.mean, self.scale, cfg.cmvn.norm_means)
+            if self._cmvn_on is None or self._cmvn_on[0] != feats.device:
+                self._cmvn_on = (feats.device,
+                                 *(torch.as_tensor(a, dtype=torch.float32, device=feats.device)
+                                   for a in (self.mean, self.scale)))
+            feats = apply_cmvn(feats, self._cmvn_on[1], self._cmvn_on[2], cfg.cmvn.norm_means)
         elif cfg.cmvn.norm_means:
             feats = utterance_cmvn(feats, cfg.cmvn.norm_vars, mask=mask)
         if cfg.delta_order > 0:

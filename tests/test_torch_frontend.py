@@ -222,8 +222,21 @@ def test_feature_pipeline_global_cmvn_and_mfcc_guard(tmp_path):
     got = FeaturePipeline(ct)({"wave": torch.from_numpy(wave)})
     ref = JaxPipeline(cj)({"wave": jnp.asarray(wave)})
     np.testing.assert_allclose(to_np(got), to_np(ref), rtol=2e-4, atol=2e-4)
-    with pytest.raises(NotImplementedError, match="K4"):
-        FeaturePipeline(C.FeatConfig(type="mfcc"))({"wave": torch.from_numpy(wave)})
+    # MFCC (through K4's plain version here) with global CMVN stats of its own
+    # dimension: the same features as the JAX pipeline (cepstra up to ~100:
+    # an atol of 2e-3 for fp32 products summed in another order)
+    stats13 = np.random.RandomState(12).rand(2, 14) * 10 + 1
+    stats13[0, -1] = 100.0
+    p13 = str(tmp_path / "cmvn13.mat")
+    jsave(p13, stats13)
+    mt = C.MfccOpts(frame_opts=C.FrameOpts(dither=0.0))
+    mj = JC.MfccOpts(frame_opts=JC.FrameOpts(dither=0.0))
+    got = FeaturePipeline(C.FeatConfig(type="mfcc", mfcc=mt, cmvn=C.CmvnOpts(stats_path=p13)))(
+        {"wave": torch.from_numpy(wave)})
+    ref = JaxPipeline(JC.FeatConfig(type="mfcc", mfcc=mj, cmvn=JC.CmvnOpts(stats_path=p13)))(
+        {"wave": jnp.asarray(wave)})
+    assert got.shape == ref.shape and got.shape[-1] == 13
+    np.testing.assert_allclose(to_np(got), to_np(ref), rtol=2e-4, atol=2e-3)
 
 
 def test_feature_pipeline_speaker_cmvn_and_vtln_extras_match_jax(tmp_path):

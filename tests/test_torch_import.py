@@ -29,7 +29,8 @@ bad = sorted(m for m in sys.modules
              if m == "pykaldi2_tpu" or m.startswith("pykaldi2_tpu."))
 assert not bad, bad
 for n in ("graph", "graph.compile", "graph.transition_model", "decode.decoder",
-          "ops.fb_lattice", "ops.fb_lattice_cuda", "ops.se_losses", "bin.train_se"):
+          "ops.fb_lattice", "ops.fb_lattice_cuda", "ops.se_losses", "bin.train_se",
+          "frontend.mfcc", "bin.compute_cmvn_stats", "bin.compute_feats"):
     assert "pykaldi2_tpu_torch." + n in names, n
 print(len(names))
 """
@@ -75,8 +76,8 @@ def test_resolve_device_without_cuda_raises(monkeypatch):
 
 
 def test_kernel_sources_are_cuda_with_plain_c_interface():
-    """K1-K3 and K7-K10 are hand-written CUDA C++ bound through ctypes: no
-    PyTorch headers, no library kernels inside."""
+    """K1-K10 are hand-written CUDA C++ bound through ctypes: no PyTorch
+    headers, no library kernels inside."""
     from pykaldi2_tpu_torch import device as D
 
     assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb")

@@ -188,8 +188,11 @@ def test_convert_round_trip_and_layout():
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="K5/K6"):
-        LSTMStack(8, 16, 1, proj_size=8)
+    # proj_size is ported (K5/K6): an LSTMP stack outputs P per direction
+    stack = LSTMStack(8, 16, 1, proj_size=8, compute_dtype=torch.float32)
+    assert stack.output_size == 8
+    with torch.no_grad():
+        assert stack(torch.randn(2, 5, 8)).shape == (2, 5, 8)
     for kind in ("tdnn", "transformer"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(ModelConfig(type=kind))

@@ -1,7 +1,8 @@
 """The port's ``bin/train_ce`` CLI on a toy corpus on the CPU (PK2_PLATFORM=cpu).
 
 Same flags, JSONL metrics and checkpoints as pykaldi2_tpu/bin/train_ce.py;
-options that wait for later slices raise.
+options that wait for later slices raise. A BLSTMP model on MFCC features
+tracks the JAX trainer step by step from the same seed checkpoint.
 """
 
 import json
@@ -15,6 +16,7 @@ import yaml
 from pykaldi2_tpu_torch.bin.train_ce import main
 
 from toydata import make_toy_corpus
+from torch_port_helpers import pallas_interpret  # noqa: F401
 
 
 @pytest.fixture
@@ -97,7 +99,6 @@ def test_train_ce_cli_seed_model(cli_files):
     ({}, ["-multihost"], "DDP"),
     ({"trainer": {"mesh_shape": {"data": 2}}}, [], "DDP"),
     ({"optimizer": {"grad_compression": "bf16"}}, [], "DDP"),
-    ({"model": {"proj_size": 8}}, [], "K5/K6"),
     ({"model": {"type": "tdnn"}}, [], "not ported"),
 ])
 def test_train_ce_cli_unported_options_raise(cli_files, over, argv, err):
@@ -116,3 +117,58 @@ def test_train_ce_cli_needs_cuda_unless_cpu_requested(cli_files, monkeypatch):
         main(["-config", cp, "-data", dp, "-exp_dir", str(tmp / "x")])
     assert main(["-config", cp, "-data", dp, "-exp_dir", str(tmp / "y"), "-num_epochs", "1"],
                 device="cpu") == 0
+
+
+def test_train_ce_cli_blstmp_mfcc_tracks_jax(cli_files, pallas_interpret):
+    """A 2-layer BLSTMP (H=256, P=128) on 13 MFCCs with energy through the
+    port's CLI (K4 and K5/K6 plain versions) against the JAX trainer (its
+    Pallas fused MFCC and LSTMP kernels in interpret mode), from one JAX-made
+    seed checkpoint, on the same batches: 4 momentum steps in fp32, dither 0,
+    dropout 0. Step i's loss is taken before update i, so it differs only by
+    the drift of the earlier updates (rtol 2e-5, as tests/test_torch_trainer.py
+    holds the LSTM)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pykaldi2_tpu import config as JC
+    from pykaldi2_tpu.data.dataloader import ChunkDataloader as JChunk
+    from pykaldi2_tpu.data.dataset import SpeechDataset as JDataset
+    from pykaldi2_tpu.models import build_model as jax_build_model
+    from pykaldi2_tpu.pipeline import FeaturePipeline as JaxPipeline
+    from pykaldi2_tpu.trainer import make_ce_train_step as jax_train_step
+    from pykaldi2_tpu.utils import make_optimizer as jax_make_optimizer
+    from pykaldi2_tpu.utils import save_checkpoint as jax_save
+
+    tmp, write = cli_files
+    mfcc = {"frame_opts": {"dither": 0.0}}
+    model = {"type": "blstm", "hidden_size": 256, "proj_size": 128, "num_layers": 2,
+             "output_size": 4, "compute_dtype": "float32", "dropout": 0.0}
+    opt = {"type": "momentum", "momentum": 0.9, "lr": 0.01, "grad_clip": 5.0}
+    trainer = {"batch_size": 8, "chunk_len": 24, "num_epochs": 1, "log_interval": 1,
+               "seed": 3}
+    cp, dp = write(data_over={"feat": {"type": "mfcc", "mfcc": mfcc}},
+                   cfg_over={"model": model, "optimizer": opt, "trainer": trainer})
+    with open(dp) as f:
+        data = yaml.safe_load(f)
+    jmodel = jax_build_model(JC.ModelConfig(input_size=13, **model))
+    params = jmodel.init(jax.random.PRNGKey(5))
+    seed_ckpt = str(tmp / "seed.npz")
+    jax_save(seed_ckpt, params)
+
+    exp = str(tmp / "exp")
+    assert main(["-config", cp, "-data", dp, "-exp_dir", exp, "-seed_model", seed_ckpt]) == 0
+    port_losses = [r["loss"] for r in _metrics(exp) if "step" in r]
+    assert len(port_losses) >= 4
+
+    fo = JC.FrameOpts(dither=0.0)
+    jds = JDataset(wav_scp=data["wav_scp"], ali=data["label_ark"], frame_opts=fo)
+    loader = JChunk(jds, batch_size=8, chunk_len=24, shuffle=True, seed=3)
+    loader.set_epoch(0)
+    feat = JaxPipeline(JC.FeatConfig(type="mfcc", mfcc=JC.MfccOpts(frame_opts=fo)))
+    jopt = jax_make_optimizer(JC.OptimizerConfig(**opt))
+    step = jax_train_step(jmodel, feat, jopt, mesh=None, donate=False)
+    state = jopt.init(params)
+    for i, b in zip(range(4), loader):
+        params, state, m = step(params, state, {k: jnp.asarray(v) for k, v in b.items()},
+                                jax.random.PRNGKey(0))
+        np.testing.assert_allclose(port_losses[i], float(m["loss"]), rtol=2e-5)
