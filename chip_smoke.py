@@ -41,7 +41,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      lattice beam 4, max_active 200), 3 steps under MMI and 3 under sMBR,
      launch counts zeroed before and read after each; then K7-K10 against
      their plain versions on a decoded lattice batch, and a profile of one
-     SE train step per criterion.
+     SE train step per criterion;
+ 10. fixed-denominator sequence training: K11 against its plain version on
+     the all-COO tiles of bench.py:463-499's 96,001-state chain graph (both
+     orientations, R=16 and 32, timed beside its bound and a BSR
+     ``torch.sparse.mm``); ``bin/compute_priors.main`` on a corpus of 48
+     utterances of 3.5-4 s (random pdf-ids below 8952); ``bin/train_se.main
+     -den_graph`` on the chain graph (the block route, K11) with the
+     flagship LSTM seeded from phase 3's checkpoint, se.yaml's settings at
+     batch 16 × 400 frames, 3 MMI and 3 sMBR steps, K11 launched the count
+     the code derives (2T a step with the full alpha history saved, 3T with
+     the segmented recompute); the dense (``-generic_den``) and bigram
+     (default) routes on phase 9's corpus, 3 steps per criterion, K11 not
+     launched; a small block-route train step on the card against the CPU;
+     and per route and criterion the fenced train step, peak memory and a
+     profile with K11's share.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -87,6 +101,14 @@ TOL = {"fbank": 2e-3, "lstm_fwd": 2e-3, "lstm_fwd_gates": 8e-3, "lstm_bwd": 1e-3
 # 1e-5·max(1, |f|) + 1e-4·|contrib|: c and f are expected frame counts of up
 # to T, and their difference keeps their ulps.
 LAT_TOL = {"log": 1e-4, "rel": 1e-4, "abs": 1e-5}
+# K11 vs plain: nonnegative x times nonnegative tiles, each output a sum of
+# up to 2·128 terms in another order: each side is within 255·2^-24 ≈ 1.5e-5
+# of the exact sum relative to the element, so the two within 3e-5 of the
+# row's max
+BLOCK_TOL = 3e-5
+# fixed-denominator SE (phase 10): batch, bucket (frames), utterances, and
+# bench.py:463-499's chain graph (3200 chains of 30 states)
+FD_B, FD_T, FD_UTTS, CHAIN = 16, 400, 48, (3200, 30)
 SE_B, SE_T, SE_UTTS, SE_PHONES, SE_PROBE_KA = 32, 448, 96, 41, 256
 # banded lattice kernels: the TPU kernel each replaces, and the fp32
 # operations one frame needs per arc and per slot (bounds below)
@@ -517,6 +539,145 @@ def latfb_probe(dev) -> dict:
     return rows
 
 
+def make_chain_graph(num_chains: int = CHAIN[0], chain_len: int = CHAIN[1],
+                     num_pdfs: int = SENONES, seed: int = 0):
+    """Copy of bench.py:463-499's ``_make_chain_graph``: a word-denominator
+    shaped graph of linear pdf chains and a shared loop state (each chain end
+    returns to the loop, the loop fans out to every chain start; self-loops
+    on chain states) — 96,001 states and 192,000 arcs at the defaults."""
+    import numpy as np
+
+    from pykaldi2_tpu_torch.ops.fsa import DenseFsa
+
+    rng = np.random.RandomState(seed)
+    S = 1 + num_chains * chain_len
+    src, dst, wt = [], [], []
+    loop = 0
+    state_pdf = np.zeros(S, np.int64)
+    state_pdf[1:] = rng.randint(1, num_pdfs, S - 1)
+    for c in range(num_chains):
+        s0 = 1 + c * chain_len
+        src.append(loop)
+        dst.append(s0)
+        wt.append(-np.log(num_chains))
+        for i in range(chain_len - 1):
+            src.append(s0 + i)
+            dst.append(s0 + i + 1)
+            wt.append(-0.1)
+            src.append(s0 + i)  # self-loop (HMM-style durations)
+            dst.append(s0 + i)
+            wt.append(-2.3)
+        src.append(s0 + chain_len - 1)
+        dst.append(loop)
+        wt.append(-0.1)
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    final = np.full(S, -np.inf, np.float32)
+    final[loop] = 0.0
+    return DenseFsa(S, src, dst, state_pdf[dst].astype(np.int32), np.asarray(wt, np.float32),
+                    final, 0)
+
+
+def blockfb_bytes(g, rows: int, transpose: bool) -> int:
+    """Bytes K11 must move: the tiles, x, the index arrays read once, the
+    output written once."""
+    from pykaldi2_tpu_torch.ops.fb_block_cuda import _orientation
+
+    src_blk, _dst, tiles, rowptr = _orientation(g, transpose)
+    return (tiles.numel() * 4 + 2 * rows * g.num_padded * 4 + src_blk.numel() * 4
+            + rowptr.numel() * 4)
+
+
+def bsr_call(g, transpose: bool, x):
+    """The library yardstick: one ``torch.sparse.mm`` of a BSR matrix with
+    128-blocks built from the same tiles (out^T = W^T x^T; W^T's block row j
+    holds tile n^T at block column i_n, and the tile list is already in that
+    row order). Returns (a callable, None) or (None, the error it raised)."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops.fb_block_cuda import _orientation
+
+    src_blk, _dst, tiles, rowptr = _orientation(g, transpose)
+    try:
+        bsr = torch.sparse_bsr_tensor(rowptr.long(), src_blk.long(),
+                                      tiles.transpose(1, 2).contiguous(),
+                                      size=(g.num_padded, g.num_padded))
+        xt = x.t().contiguous()
+        fn = lambda: torch.sparse.mm(bsr, xt)  # noqa: E731
+        out = fn()
+        torch.cuda.synchronize()
+        return fn, out.t()
+    except Exception as e:  # the yardstick only: the port never calls it
+        return None, e
+
+
+def blockfb_checks(dev, g=None) -> tuple:
+    """Phase 10, K11: the block-sparse matvec against its plain version at
+    the main path's shapes — the all-COO tiles of the 96k-state chain graph,
+    both orientations, R = 16 (MMI, sMBR's beta) and R = 32 (sMBR's stacked
+    rows) — and timed beside its bound and the BSR library call. Returns
+    (row of the R = 16 forward orientation, the packed graph on the card)."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops.fb_block import pack_graph_blocks
+    from pykaldi2_tpu_torch.ops.fb_block_cuda import block_matvec, block_matvec_plain
+
+    if g is None:
+        t0 = time.perf_counter()
+        fsa = make_chain_graph()
+        g = pack_graph_blocks(fsa)
+        print(f"chain graph: {fsa.num_states} states, {fsa.num_arcs} arcs → Sp={g.num_padded}, "
+              f"{g.wb.shape[0]} tiles (forward), {g.wbt.shape[0]} (transposed); packed on the "
+              f"host in {time.perf_counter() - t0:.2f} s", flush=True)
+        g = g.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    row, errs = None, []
+    for rows in (FD_B, 2 * FD_B):
+        for transpose in (False, True):
+            x = torch.rand(rows, g.num_padded, generator=gen, device=dev)
+            x[:, g.num_states:] = 0.0      # padded states: 0 in linear form
+            got = block_matvec(x, g, transpose)
+            torch.cuda.synchronize()
+            want = block_matvec_plain(x, g, transpose)
+            label = f"K11 block_matvec R={rows} {'transposed' if transpose else 'forward'}"
+            scale = want.abs().max(dim=1, keepdim=True).values
+            worst = float(((got - want).abs() / (BLOCK_TOL * scale)).max())
+            err = float((got - want).abs().max())
+            print(f"{label}: max_abs_err {err:.3e}, worst error / ({BLOCK_TOL:g}*row max) "
+                  f"{worst:.3f}", flush=True)
+            if not math.isfinite(worst) or worst > 1.0:
+                fail(f"{label} disagrees with its plain version (worst ratio {worst})")
+            if not bool((got[:, g.num_states:] == 0).all()):
+                fail(f"{label}: padded states are not exactly 0")
+            errs.append(err)
+            nbytes = blockfb_bytes(g, rows, transpose)
+            ntiles = (g.wbt if transpose else g.wb).shape[0]
+            bms, by = bound_ms(nbytes, [(2 * rows * g.block * g.block * ntiles, FP32_FLOPS)])
+            lib_fn, lib_out = bsr_call(g, transpose, x)
+            lib_ms = None
+            if lib_fn is None:
+                print(f"{label}: the BSR library call raised: {lib_out!r}", flush=True)
+            elif not bool(torch.allclose(lib_out, want, rtol=1e-4, atol=1e-6)):
+                print(f"{label}: the BSR library call disagrees with the plain version "
+                      f"(max {float((lib_out - want).abs().max()):.3e}); not timed", flush=True)
+            else:
+                lib_ms = timed(lib_fn, n=20)
+            r = dict(name="block_matvec", route="cuda",
+                     source="pykaldi2_tpu_torch/csrc/blockfb.cu",
+                     replaces="pykaldi2_tpu/ops/fb_block.py:297",
+                     ms=timed(lambda: block_matvec(x, g, transpose), n=50),
+                     plain_ms=timed(lambda: block_matvec_plain(x, g, transpose), n=10),
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+            print(f"kernel {label}: {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+                  f"library (BSR sparse.mm) {lib} ms | bound {bms:.4f} ms ({by}, {nbytes} bytes)",
+                  flush=True)
+            if row is None:
+                row = r
+    row["max_abs_err"] = max(errs)
+    return row, g
+
+
 def blstm_grad_check(dev, proj: int = 0):
     """A 2-layer BLSTM, or BLSTMP with ``proj`` (reversed direction, masks,
     dWh, dWp and the bf16 GEMM gradients) on the card against the same module
@@ -606,16 +767,17 @@ def write_corpus(root: str, n_utts: int = 128, seconds=(1.0, 3.0), num_labels: i
 
 
 def counted() -> dict:
-    """Every kernel wrapper by its row name, K1-K10; each counts its launches."""
+    """Every kernel wrapper by its row name, K1-K11; each counts its launches."""
     from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_mfcc
     from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
     from pykaldi2_tpu_torch.ops import lstm_cuda as L
+    from pykaldi2_tpu_torch.ops.fb_block_cuda import block_matvec
 
     return {"fbank": fused_fbank, "lstm_fwd": L.lstm_fwd, "lstm_bwd": L.lstm_bwd,
             "mfcc": fused_mfcc, "lstm_proj_fwd": L.lstm_proj_fwd,
             "lstm_proj_bwd": L.lstm_proj_bwd, "latfb_logz_fwd": KC.logz_fwd,
             "latfb_occupancies_bwd": KC.occupancies_bwd, "latfb_smbr_fwd": KC.smbr_fwd,
-            "latfb_smbr_bwd": KC.smbr_contribs_bwd}
+            "latfb_smbr_bwd": KC.smbr_contribs_bwd, "block_matvec": block_matvec}
 
 
 def zero_counts() -> None:
@@ -643,8 +805,7 @@ def train_ce_run(dev, what: str, cfg_yaml: str, data_yaml: str, exp: str) -> tup
     if rc != 0:
         fail(f"{what}: train_ce.main returned {rc}")
     print(f"{what} launches: {json.dumps(launches)}", flush=True)
-    with open(os.path.join(exp, "metrics.jsonl")) as f:
-        steps = [r for r in map(json.loads, f) if "step" in r]
+    steps = step_records(exp)
     if not steps or not all(math.isfinite(r["loss"]) for r in steps):
         fail(f"{what} wrote no finite step losses: {steps}")
     print(f"{what}: {len(steps)} steps, losses {[round(r['loss'], 4) for r in steps]}",
@@ -877,9 +1038,10 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step") ->
     return out
 
 
-def profile_steps(fn, n: int, what: str, top: int = 15) -> float:
+def profile_steps(fn, n: int, what: str, top: int = 15, share_of: str = None) -> float:
     """Profile n calls of fn; print the device busy share and the top kernels
-    by device time per call; returns the busy share."""
+    by device time per call (and, with ``share_of``, the share of device time
+    of the kernels whose name holds it); returns the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -902,6 +1064,10 @@ def profile_steps(fn, n: int, what: str, top: int = 15) -> float:
     for e in sorted(evs, key=lambda e: -_self_device_us(e))[:top]:
         print(f"  {_self_device_us(e) / (n * 1e3):9.3f} ms/step  x{e.count // n:<5d} "
               f"{e.key[:90]}", flush=True)
+    if share_of:
+        mine = sum(_self_device_us(e) for e in evs if share_of in e.key)
+        print(f"{what}: {share_of} {mine / (n * 1e3):.3f} ms/step, {100 * mine / busy_us:.1f}% "
+              f"of device time", flush=True)
     return busy_us / wall_us
 
 
@@ -970,8 +1136,7 @@ def se_path(dev, root: str, ce_ckpt: str):
                 if got[name] <= 0:
                     fail(f"kernel {name} was not launched on the SE {crit} path")
             launches.update({name: got[name] for name in need[crit]})
-            with open(os.path.join(exp, "metrics.jsonl")) as f:
-                steps = [r for r in map(json.loads, f) if "step" in r]
+            steps = step_records(exp)
             if len(steps) != SE_UTTS // SE_B or not all(math.isfinite(r["objective"])
                                                          for r in steps):
                 fail(f"SE {crit} path: expected {SE_UTTS // SE_B} steps with finite "
@@ -1051,6 +1216,263 @@ def se_step_checks(dev, first: dict, cfg_yaml: str, data_yaml: str, ckpt: str) -
     return rows
 
 
+def expected_block_launches(crit: str, t_lens, sp: int) -> int:
+    """K11 launches of the block route's train steps, derived from the code:
+    MMI computes logZ and the occupancies in its forward (T matvecs each);
+    when the [T, B, Sp] alpha history (two for sMBR: alpha and accumulator)
+    passes the 3 GiB save budget, the backward recomputes each segment first
+    (another T). So 2T a step with the full save, 3T with remat."""
+    hist = 1 if crit == "mmi" else 2
+    return sum((2 if hist * t * FD_B * sp * 4 <= (3 << 30) else 3) * t for t in t_lens)
+
+
+def step_records(exp: str) -> list:
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "step" in r]
+
+
+def train_se_fixed_run(dev, what: str, argv: list, steps: int) -> tuple:
+    """``bin/train_se.main`` without ``-on_the_fly``, the counts zeroed just
+    before and read just after; fails unless it ran ``steps`` steps with
+    finite objectives. Returns (launches, step records)."""
+    from pykaldi2_tpu_torch.bin import train_se
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = train_se.main(argv, device=str(dev))
+    launches = read_counts()
+    if rc != 0:
+        fail(f"{what}: train_se.main returned {rc}")
+    print(f"{what}: {time.perf_counter() - t0:.1f} s, launches {json.dumps(launches)}",
+          flush=True)
+    exp = argv[argv.index("-exp_dir") + 1]
+    recs = step_records(exp)
+    if len(recs) != steps or not all(math.isfinite(r["objective"]) for r in recs):
+        fail(f"{what}: expected {steps} steps with finite objectives, got {recs}")
+    for r in recs:
+        print(f"{what} step {int(r['step'])}: objective {r['objective']:.5f} frame_acc "
+              f"{r['frame_acc']:.4f} | T {int(r['t_len'])} | train step {r['train_ms']:.1f} ms",
+              flush=True)
+    return launches, recs
+
+
+def fixed_step_timing(dev, what: str, cfg_yaml: str, data_yaml: str, den, crit: str, ckpt: str,
+                      log_prior, pdf_to_phone, smi: str) -> None:
+    """Phase 10, timing: one fixed-denominator train step on the loader's
+    first batch, fenced 3 times after a warm-up, its peak memory, then a
+    profile of one step (device busy share, K11's share, top kernels)."""
+    import torch
+
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+    from pykaldi2_tpu_torch.trainer import make_se_train_step
+    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
+
+    cfg = load_config(cfg_yaml)
+    cfg.data = load_data_config(data_yaml)
+    dataset, feat_fn, _ = build_frontend(cfg.data)
+    cfg.model.input_size = feat_fn.dim
+    model = build_model(cfg.model).to(dev)
+    load_checkpoint(ckpt, model)
+    step = make_se_train_step(
+        model, feat_fn, make_optimizer(cfg.optimizer, model.parameters()), den, crit,
+        log_prior=log_prior, acoustic_scale=cfg.trainer.acoustic_scale,
+        ce_ratio=cfg.trainer.ce_ratio, pdf_to_phone=pdf_to_phone)
+    loader = SeqDataloader(dataset, BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
+                                               batch_sizes=cfg.trainer.batch_size),
+                           shuffle=False, seed=cfg.trainer.seed)
+    loader.set_epoch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(loader)).items()
+             if k != "utt_ids"}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(batch, gen)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(batch, gen)
+        obj = float(m["objective"])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    if not math.isfinite(obj):
+        fail(f"{what} train step reached objective {obj}")
+    b, t = batch["labels"].shape
+    print(f"{what} train step (B={b}, T={t}; {smi}): fenced "
+          f"{', '.join(f'{x:.2f}' for x in lat)} ms, objective {obj:.5f}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    profile_steps(lambda: step(batch, gen), 1, f"{what} train step profile ({smi})", top=12,
+                  share_of="block_matvec")
+
+
+def fixed_den_card_vs_cpu(dev) -> None:
+    """Phase 10: one block-route train step of a small LSTM on a small chain
+    graph (401 states, 4 blocks of 128) on the card (K11) and on the CPU
+    (plain K11), from the same weights and batch, under MMI and sMBR in both
+    backward modes. The LSTM's recurrent products round h to bf16 on both
+    sides, and a rounding tie that fp32 noise flips moves later steps by a
+    bf16 ulp: objectives agree to 1e-3·max(1, |obj|) and gradients to 1e-2 of
+    each tensor's max (as ``blstm_grad_check``)."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.config import (FbankOpts, FeatConfig, FrameOpts, MelOpts,
+                                           ModelConfig, OptimizerConfig)
+    from pykaldi2_tpu_torch.data.dataloader import chunk_samples
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.ops.fb_block import pack_graph_blocks
+    from pykaldi2_tpu_torch.pipeline import FeaturePipeline
+    from pykaldi2_tpu_torch.trainer import make_se_train_step
+    from pykaldi2_tpu_torch.utils import make_optimizer
+
+    pdfs = 50
+    g = pack_graph_blocks(make_chain_graph(40, 10, pdfs))
+    feat_cfg = FeatConfig(fbank=FbankOpts(frame_opts=FrameOpts(dither=0.0),
+                                          mel_opts=MelOpts(num_bins=24)))
+    mcfg = ModelConfig(type="lstm", input_size=24, hidden_size=64, num_layers=2,
+                       output_size=pdfs, compute_dtype="float32")
+    rng = np.random.RandomState(9)
+    b, t = 4, 60
+    batch = {"wave": torch.tensor((rng.randn(b, chunk_samples(t, feat_cfg.fbank.frame_opts))
+                                   * 3000).astype(np.float32)),
+             "labels": torch.tensor(rng.randint(0, pdfs, (b, t)).astype(np.int32)),
+             "num_frames": torch.tensor([60, 50, 40, 30], dtype=torch.int32)}
+    batch["mask"] = (torch.arange(t)[None, :] < batch["num_frames"][:, None]).float()
+    batch["labels"][batch["mask"] == 0] = -1
+    opt = OptimizerConfig(type="sgd", lr=0.0, grad_clip=0.0)
+    base = build_model(mcfg, generator=torch.Generator().manual_seed(4))
+    for crit in ("mmi", "smbr"):
+        for budget in (str(3 << 30), "0"):
+            os.environ["PK2_BLOCKFB_SAVE_BYTES"] = budget
+            out = []
+            for d in ("cpu", dev):
+                model = build_model(mcfg).to(d)
+                model.load_state_dict(base.state_dict())
+                step = make_se_train_step(model, FeaturePipeline(feat_cfg),
+                                          make_optimizer(opt, model.parameters()), g, crit,
+                                          acoustic_scale=0.1, ce_ratio=0.1)
+                m = step({k: v.to(d) for k, v in batch.items()})
+                out.append((float(m["objective"]),
+                            {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+            del os.environ["PK2_BLOCKFB_SAVE_BYTES"]
+            (o_cpu, g_cpu), (o_card, g_card) = out
+            mode = "full save" if budget != "0" else "remat"
+            d_obj = abs(o_card - o_cpu)
+            worst = max(float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max())
+                        for k in g_cpu)
+            print(f"block route {crit} ({mode}), card vs CPU: objective {o_card:.6f} vs "
+                  f"{o_cpu:.6f} (|diff| {d_obj:.2e}), gradients max error relative to each "
+                  f"tensor's max {worst:.3e}", flush=True)
+            if not math.isfinite(d_obj) or d_obj > 1e-3 * max(1.0, abs(o_cpu)):
+                fail(f"block route {crit} ({mode}): card and CPU objectives disagree")
+            if not math.isfinite(worst) or worst > 1e-2:
+                fail(f"block route {crit} ({mode}): card and CPU gradients disagree ({worst})")
+
+
+def fixed_den_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> tuple:
+    """Phase 10: fixed-denominator sequence training. Returns (K11's row, its
+    launches on the block route)."""
+    import numpy as np
+    import yaml
+
+    from pykaldi2_tpu_torch.bin import compute_priors, train_se
+    from pykaldi2_tpu_torch.data import kaldi_io
+    from pykaldi2_tpu_torch.ops.fsa import save_fsa
+    from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    row, g = blockfb_checks(dev)
+
+    # compute_priors on the phase's alignments
+    corpus = write_corpus(os.path.join(root, "fd_corpus"), FD_UTTS, (3.5, 4.0), SENONES, seed=2)
+    prior = os.path.join(root, "fd_corpus", "prior.npy")
+    if compute_priors.main(["-ali", corpus["label_ark"], "-out", prior,
+                            "-num_pdfs", str(SENONES)]) != 0:
+        fail("compute_priors.main failed")
+    want = priors_from_counts(count_labels(
+        (v for _, v in kaldi_io.read_ark(corpus["label_ark"], "ivec")), SENONES))
+    got = np.load(prior)
+    if got.shape != (SENONES,) or not np.isfinite(got).all() or not np.array_equal(got, want):
+        fail(f"compute_priors wrote {got.shape}, not the alignments' log-priors")
+    print(f"compute_priors: {SENONES} log-priors from {FD_UTTS} utterances", flush=True)
+
+    # the block route at full width: the 96k-state chain graph, the flagship LSTM
+    chain = os.path.join(root, "fd_corpus", "chain_den.npz")
+    save_fsa(chain, make_chain_graph())
+    data_yaml, cfg_yaml = os.path.join(root, "fd_data.yaml"), os.path.join(root, "fd.yaml")
+    with open(data_yaml, "w") as f:
+        yaml.safe_dump({**corpus, "feat": {"fbank": {"frame_opts": {"dither": 0.0},
+                                                     "mel_opts": {"num_bins": BINS}}}}, f)
+    with open(cfg_yaml, "w") as f:  # examples/librispeech/se.yaml, one 400-frame bucket of 16
+        yaml.safe_dump({
+            "model": {"type": "lstm", "hidden_size": H, "num_layers": LAYERS,
+                      "output_size": SENONES, "compute_dtype": "bfloat16"},
+            "optimizer": {"type": "momentum", "momentum": 0.9, "lr": 1e-5, "grad_clip": 5.0},
+            "trainer": {"batch_size": FD_B, "num_epochs": 1, "log_interval": 1, "seed": 777,
+                        "acoustic_scale": 0.1, "ce_ratio": 0.1, "drop_frames": True,
+                        "bucket_boundaries": [FD_T]}}, f)
+    block_launches = 0
+    for crit in ("mmi", "smbr"):
+        what = f"fixed-den SE, block route, {crit}"
+        launches, recs = train_se_fixed_run(dev, what, [
+            "-config", cfg_yaml, "-data", data_yaml, "-exp_dir",
+            os.path.join(root, f"fd_block_{crit}"), "-criterion", crit, "-den_graph", chain,
+            "-prior_path", prior, "-seed_model", ce_ckpt], FD_UTTS // FD_B)
+        need_launches(what, launches, positive=("fbank", "lstm_fwd", "lstm_bwd"))
+        want_n = expected_block_launches(crit, [int(r["t_len"]) for r in recs], g.num_padded)
+        if launches["block_matvec"] != want_n:
+            fail(f"{what}: K11 launched {launches['block_matvec']} times, the code derives "
+                 f"{want_n}")
+        t_sum = sum(int(r["t_len"]) for r in recs)
+        print(f"{what}: K11 launched {want_n} times as derived ({want_n // t_sum}T a step)",
+              flush=True)
+        block_launches += launches["block_matvec"]
+
+    # dense and bigram routes on phase 9's 41-phone 3-state corpus
+    mdl = os.path.join(root, "se_corpus", "final.mdl")
+    for route, extra, crit in (("dense", ["-generic_den"], "mmi"), ("bigram", [], "mmi"),
+                               ("bigram", [], "smbr"), ("bigram", [], "mpfe")):
+        what = f"fixed-den SE, {route} route, {crit}"
+        launches, _ = train_se_fixed_run(dev, what, [
+            "-config", se_cfg, "-data", se_data, "-exp_dir",
+            os.path.join(root, f"fd_{route}_{crit}"), "-criterion", crit, "-trans_model", mdl,
+            "-seed_model", ce_ckpt, *extra], SE_UTTS // SE_B)
+        need_launches(what, launches, positive=("fbank", "lstm_fwd", "lstm_bwd"),
+                      zero=("block_matvec",))
+
+    fixed_den_card_vs_cpu(dev)
+
+    # timing: the block route on the chain graph, the dense and bigram routes
+    log_prior = np.load(prior)
+    for crit in ("mmi", "smbr"):
+        fixed_step_timing(dev, f"fixed-den block {crit}", cfg_yaml, data_yaml, g, crit, ce_ckpt,
+                          log_prior, None, smi)
+    import logging
+
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+
+    cfg = load_config(se_cfg)
+    cfg.data = load_data_config(se_data)
+    dataset, _, _ = build_frontend(cfg.data)
+    log = logging.getLogger("chip_smoke")
+    for route, extra, crits in (("dense", ["-generic_den"], ("mmi",)),
+                                ("bigram", [], ("mmi", "smbr", "mpfe"))):
+        args = train_se.build_argparser().parse_args(
+            ["-exp_dir", root, "-trans_model", mdl, *extra])
+        tm, den, p2p = train_se._build_tm_and_den(cfg, args, dataset, log)
+        for crit in crits:
+            packed = train_se.pack_denominator(args, cfg, log, dataset, tm, den, p2p, crit)
+            fixed_step_timing(dev, f"fixed-den {route} {crit}", se_cfg, se_data, packed, crit,
+                              ce_ckpt, priors_from_counts(count_labels(
+                                  dataset.labels.values(), SENONES)), p2p, smi)
+    return row, block_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1106,6 +1528,8 @@ def main() -> int:
     se_launches, first, se_cfg, se_data = se_path(dev, root, os.path.join(exp, "model.0.npz"))
     decoded = se_step_checks(dev, first, se_cfg, se_data,
                              os.path.join(root, "se_smbr", "model.0.npz"))
+    rows["block_matvec"], launches["block_matvec"] = fixed_den_phase(
+        dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

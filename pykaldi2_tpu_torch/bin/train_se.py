@@ -6,16 +6,28 @@ pseudo-log-likelihoods, and trains with a lattice criterion):
 
     python -m pykaldi2_tpu_torch.bin.train_se -config se.yaml -data data.yaml \\
         -exp_dir exp/se -seed_model exp/ce/model.7.npz -criterion mmi \\
-        -on_the_fly -decoder host
+        [-den_graph den.npz | -generic_den | -on_the_fly -decoder host]
 
-Ported so far: ``-on_the_fly -decoder host``, the reference's signature mode.
-Per batch the eval forward runs on the device, the native C++ decoder
-(decode/decoder.py) decodes one denominator lattice per utterance on host
-threads, the lattices are packed into frame bands (ops/fb_lattice.py), and
-the banded forward-backward runs on the device (kernels K7-K10). Runs on one
-CUDA device unless ``PK2_PLATFORM=cpu`` (or ``main(..., device="cpu")``)
-asks for the CPU. The fixed-denominator mode, ``-decoder device`` and
-``-multihost`` raise until their slices.
+Two modes, as in the reference:
+
+  * fixed denominator (the default): one denominator graph for the whole
+    run, forward-backward on the device through one of four routes —
+    the structured phone-bigram kernels (ops/fb_bigram.py) when no
+    ``-den_graph`` is given (the recipe's stage 3), else ``pack_graph_auto``
+    on the loaded (or ``-generic_den``: the alignment-estimated) graph:
+    the dense state matrix up to 16,384 states (ops/fb_dense.py), the
+    block-sparse tiles above that (ops/fb_block.py, kernel K11), the arc
+    tables for graphs that break the state-emission rule (ops/fb.py);
+  * ``-on_the_fly -decoder host``, the reference's signature mode: per
+    batch the eval forward runs on the device, the native C++ decoder
+    (decode/decoder.py) decodes one denominator lattice per utterance on
+    host threads, the lattices are packed into frame bands
+    (ops/fb_lattice.py), and the banded forward-backward runs on the device
+    (kernels K7-K10).
+
+Runs on one CUDA device unless ``PK2_PLATFORM=cpu`` (or ``main(...,
+device="cpu")``) asks for the CPU. ``-decoder device`` and ``-multihost``
+raise until their slices.
 """
 
 from __future__ import annotations
@@ -107,7 +119,9 @@ def build_argparser():
                         "decoder reads (bf16 halves the transfer; decode "
                         "beams dwarf the rounding)")
     p.add_argument("-generic_den", action="store_true",
-                   help="fixed-denominator mode: generic arc-table den kernels")
+                   help="fixed-denominator mode: pack the alignment-estimated den graph "
+                        "with pack_graph_auto (dense, block-sparse or arc tables) instead "
+                        "of the structured bigram kernels")
     p.add_argument("-silence_phones", default=None,
                    help="colon-separated silence phone ids (Kaldi "
                         "MpeVariants accuracy rules for smbr/mpfe; ignored "
@@ -167,11 +181,7 @@ def main(argv=None, device: Optional[str] = None):
     args = build_argparser().parse_args(argv)
     if args.multihost:
         raise NotImplementedError("-multihost comes with the DDP slice (ROADMAP.md Queue 1)")
-    if not args.on_the_fly:
-        raise NotImplementedError(
-            "the fixed-denominator mode (train_se without -on_the_fly) comes with the "
-            "fixed-denominator SE slice and kernel K11 (ROADMAP.md Queue 1)")
-    if args.decoder == "device":
+    if args.on_the_fly and args.decoder == "device":
         raise NotImplementedError(
             "-decoder device (the batched beam search on the GPU) comes with the "
             "device-decoder slice (ROADMAP.md Queue 1)")
@@ -214,7 +224,7 @@ def main(argv=None, device: Optional[str] = None):
     model = model.to(dev)
     optimizer = make_optimizer(cfg.optimizer, model.parameters())
 
-    tm, _den, pdf_to_phone = _build_tm_and_den(cfg, args, dataset, log)
+    tm, den, pdf_to_phone = _build_tm_and_den(cfg, args, dataset, log)
     if cfg.model.output_size < tm.num_pdfs:
         raise SystemExit(f"model output {cfg.model.output_size} < num pdfs {tm.num_pdfs}")
     crit = {"mpe": "mpfe"}.get(cfg.trainer.criterion, cfg.trainer.criterion)
@@ -255,10 +265,120 @@ def main(argv=None, device: Optional[str] = None):
     else:
         log.warning("no seed model — SE training from random init is unusual")
 
-    return _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
-                           tm, pdf_to_phone, log_prior, start_epoch, dev,
-                           resume_meta=resume_meta, crit=crit, extras_fn=extras_fn,
-                           silence=silence)
+    if args.on_the_fly:
+        return _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
+                               tm, pdf_to_phone, log_prior, start_epoch, dev,
+                               resume_meta=resume_meta, crit=crit, extras_fn=extras_fn,
+                               silence=silence)
+    den_packed = pack_denominator(args, cfg, log, dataset, tm, den, pdf_to_phone, crit)
+    return _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
+                      den_packed, pdf_to_phone, log_prior, start_epoch, dev,
+                      resume_meta=resume_meta, crit=crit, extras_fn=extras_fn, silence=silence)
+
+
+def pack_denominator(args, cfg, log, dataset, tm, den, pdf_to_phone, crit: str):
+    """The fixed denominator's packing (route), as the reference picks it:
+    without ``-den_graph`` and ``-generic_den``, the structured bigram graph
+    of the alignment phone LM; otherwise ``pack_graph_auto`` on ``den`` (dense,
+    block-sparse or arc tables), with the arc tables for MPFE when a dense
+    packing has no phone labels."""
+    from pykaldi2_tpu_torch.ops import fb_dense
+    from pykaldi2_tpu_torch.ops.fb import pack_graph
+
+    if not args.generic_den and not (args.den_graph or cfg.trainer.den_graph):
+        from pykaldi2_tpu_torch.ops.fb_bigram import make_bigram_den
+
+        try:
+            seqs = [collapse_to_phones(pdf_to_phone[l]) for l in dataset.labels.values()]
+            packed = make_bigram_den(tm, estimate_phone_bigram(seqs, tm.topo.phones),
+                                     num_pdfs=cfg.model.output_size)
+            log.info("using structured bigram den kernels (%d phones x %d states)",
+                     *packed.pdf.shape)
+            return packed
+        except ValueError as e:
+            log.warning("structured den unavailable (%s); using generic kernels", e)
+    packed = fb_dense.pack_graph_auto(den, num_pdfs=cfg.model.output_size)
+    if (crit == "mpfe" and isinstance(packed, fb_dense.DenseStateGraph)
+            and packed.state_phone is None):
+        packed = pack_graph(den)  # needs per-arc phones
+    log.info("generic den graph packed as %s (%d states, %d arcs)", type(packed).__name__,
+             den.num_states, den.num_arcs)
+    return packed
+
+
+def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, den_packed,
+               pdf_to_phone, log_prior, start_epoch, dev, resume_meta=None, crit="mmi",
+               extras_fn=None, silence=None):
+    """Fixed-denominator epochs: SeqDataloader buckets, one train step per
+    batch, the plateau annealer, a checkpoint and ``metrics.jsonl`` lines
+    per epoch. Each logged step also records ``train_ms`` (CUDA events; the
+    host clock on the CPU) and the batch's padded frame count ``t_len``."""
+    from pykaldi2_tpu_torch.trainer import make_se_train_step
+
+    step = make_se_train_step(
+        model, feat_fn, optimizer, den_packed, crit, log_prior=log_prior,
+        acoustic_scale=cfg.trainer.acoustic_scale, den_scale=cfg.trainer.den_scale,
+        drop_frames=cfg.trainer.drop_frames, ce_ratio=cfg.trainer.ce_ratio,
+        pdf_to_phone=pdf_to_phone, silence=silence)
+    annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
+    annealer.restore_from_checkpoint(resume_meta, optimizer)
+    bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
+                        batch_sizes=cfg.trainer.batch_size)
+    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    step_no = 0
+    try:
+        for epoch in range(start_epoch, cfg.trainer.num_epochs):
+            loader = SeqDataloader(dataset, bucket, shuffle=cfg.data.shuffle,
+                                   seed=cfg.trainer.seed, num_workers=cfg.data.num_workers,
+                                   extras_fn=extras_fn)
+            loader.set_epoch(epoch)
+            tp = Throughput()
+            # device-scalar accumulation: reading a value per step would make
+            # the host wait for the device
+            ep_obj = torch.zeros((), device=dev)
+            ep_frames = torch.zeros((), device=dev)
+            synced_frames = 0.0
+            for batch in device_prefetch(equalized_steps(loader, iter(loader)), dev):
+                utt_ids = batch.pop("utt_ids")
+                start = _mark(dev)
+                m = step(batch, gen)
+                end = _mark(dev)
+                step_no += 1
+                ep_obj += m["objective"] * m["frames"]
+                ep_frames += m["frames"]
+                tp.update(len(utt_ids), 0.0)
+                if step_no % cfg.trainer.log_interval == 0:
+                    gf = float(ep_frames)
+                    tp.update(0, gf - synced_frames)
+                    synced_frames = gf
+                    u_s, f_s = tp.rates()
+                    obj, acc = float(m["objective"]), float(m["frame_acc"])
+                    train_ms, t_len = _ms(start, end), int(batch["labels"].shape[1])
+                    log.info("epoch %d step %d %s %.4f acc %.4f | %.1f utt/s %.0f frames/s | "
+                             "T %d train_ms %.1f", epoch, step_no, crit, obj, acc, u_s, f_s,
+                             t_len, train_ms)
+                    metrics_log.log(epoch=epoch, step=step_no, objective=obj, frame_acc=acc,
+                                    utt_per_sec=u_s, frames_per_sec=f_s, train_ms=train_ms,
+                                    t_len=t_len)
+            _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch, crit,
+                       ep_obj, ep_frames)
+    finally:
+        metrics_log.close()
+    return 0
+
+
+def _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch: int, what: str,
+               ep_obj, ep_frames) -> None:
+    """The epoch's objective per frame → the plateau annealer's lr scale, a
+    checkpoint and a ``metrics.jsonl`` line."""
+    ep = float(ep_obj) / max(float(ep_frames), 1.0)
+    scale = annealer.step(-ep)  # objective is maximized
+    set_lr_scale(optimizer, scale)
+    ckpt = os.path.join(args.exp_dir, f"model.{epoch}.npz")
+    save_checkpoint(ckpt, model, optimizer, {"epoch": epoch, "objective": ep, "lr_scale": scale,
+                                             "anneal": annealer.state()})
+    log.info("epoch %d done: %s objective %.4f → %s", epoch, what, ep, ckpt)
+    metrics_log.log(epoch=epoch, epoch_objective=ep, lr_scale=scale)
 
 
 def equalized_steps(loader, batch_iter):
@@ -437,15 +557,8 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
                     pending = item
             if pending is not None:
                 run_step(pending)
-            ep = float(ep_obj) / max(float(ep_frames), 1.0)
-            scale = annealer.step(-ep)  # objective is maximized
-            set_lr_scale(optimizer, scale)
-            ckpt = os.path.join(args.exp_dir, f"model.{epoch}.npz")
-            save_checkpoint(ckpt, model, optimizer,
-                            {"epoch": epoch, "objective": ep, "lr_scale": scale,
-                             "anneal": annealer.state()})
-            log.info("epoch %d done: %s(lat) objective %.4f → %s", epoch, crit, ep, ckpt)
-            metrics_log.log(epoch=epoch, epoch_objective=ep, lr_scale=scale)
+            _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch,
+                       f"{crit}(lat)", ep_obj, ep_frames)
     finally:
         utt_pool.shutdown()
         pipe_pool.shutdown()

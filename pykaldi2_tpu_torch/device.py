@@ -28,7 +28,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-KERNEL_SOURCES = ("fbank", "lstm", "latfb")
+KERNEL_SOURCES = ("fbank", "lstm", "latfb", "blockfb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -31,7 +31,7 @@ from typing import Tuple
 import torch
 
 from pykaldi2_tpu_torch import device as D
-from pykaldi2_tpu_torch.ops.fb import NEG_INF, log_safe
+from pykaldi2_tpu_torch.ops.fb import NEG_INF, _acc_ratio, _clamped_max, log_safe
 from pykaldi2_tpu_torch.ops.fb_batched import _seg_sum_b
 
 Tensor = torch.Tensor
@@ -40,10 +40,6 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-
-
-def _clamped_max(x: Tensor) -> Tensor:
-    return torch.clamp(x.max(dim=1, keepdim=True).values, min=NEG_INF)
 
 
 def _gather(x: Tensor, idx: Tensor) -> Tensor:
@@ -103,12 +99,6 @@ def occupancies_bwd_plain(obs_arc: Tensor, src: Tensor, dst: Tensor, w: Tensor,
         beta = act * (new_beta - m2) + (1.0 - act) * beta
         bnorm = bnorm + act * m2
     return torch.stack(gammas)
-
-
-def _acc_ratio(numer: Tensor, denom: Tensor) -> Tensor:
-    pos = denom > 0
-    return torch.where(pos, numer / torch.where(pos, denom, torch.ones_like(denom)),
-                       torch.zeros_like(numer))
 
 
 def smbr_fwd_plain(obs_arc: Tensor, src: Tensor, dst: Tensor, w: Tensor, active: Tensor,

@@ -30,7 +30,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 for n in ("graph", "graph.compile", "graph.transition_model", "decode.decoder",
           "ops.fb_lattice", "ops.fb_lattice_cuda", "ops.se_losses", "bin.train_se",
-          "frontend.mfcc", "bin.compute_cmvn_stats", "bin.compute_feats"):
+          "frontend.mfcc", "bin.compute_cmvn_stats", "bin.compute_feats", "ops.fb_dense",
+          "ops.fb_block", "ops.fb_block_cuda", "ops.fb_bigram", "bin.compute_priors"):
     assert "pykaldi2_tpu_torch." + n in names, n
 print(len(names))
 """
@@ -76,11 +77,11 @@ def test_resolve_device_without_cuda_raises(monkeypatch):
 
 
 def test_kernel_sources_are_cuda_with_plain_c_interface():
-    """K1-K10 are hand-written CUDA C++ bound through ctypes: no PyTorch
+    """K1-K11 are hand-written CUDA C++ bound through ctypes: no PyTorch
     headers, no library kernels inside."""
     from pykaldi2_tpu_torch import device as D
 
-    assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb")
+    assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb", "blockfb")
     for name in D.KERNEL_SOURCES:
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in src

@@ -199,7 +199,7 @@ def test_train_se_cli_tracks_jax_cli(tmp_path, pallas_interpret, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,err", [
-    ([], "fixed-denominator"),
+    (["-multihost"], "DDP"),
     (["-on_the_fly", "-decoder", "device"], "device-decoder"),
     (["-on_the_fly", "-multihost"], "DDP"),
 ])
