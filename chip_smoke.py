@@ -11,8 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K4 for Kaldi's mfcc_hires options and its 13-cepstra default, K5/K6 at
      the BLSTMP shapes (P=512) in both directions; K7-K10 likewise on the
      probe lattice of bench.py:626-647 (B=32, T=448, K=A=256, 8952 pdfs);
-     then a small BLSTM's and a small BLSTMP's outputs and gradients on the
-     card against the CPU;
+     K2/K3 also at B in {16, 32, 64, 70} x H in {1024, 64, 48} with padded
+     rows, each called twice on the same inputs, which must agree bit for
+     bit; then a small BLSTM's and a small BLSTMP's outputs and gradients on
+     the card against the CPU;
   3. write a synthetic wave corpus (128 utterances of 1-3 s, random pdf-ids
      below 8952) and run the port's ``bin/train_ce.main`` on it at full width
      (4x1024 LSTM, 80-bin fbank, 8952 senones, batch 64, 80-frame chunks, Adam
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4. one eval pass of the trained checkpoint on the card, held against the
      same model on the CPU (plain versions) on a small input;
   5. train-step timing and a short profile of the device time by kernel;
-  6. K2/K3 time against sequence length and batch (per-step vs fixed cost);
+  6. K2/K3 time against sequence length and batch (per-step vs fixed cost),
+     beside cuDNN's LSTM forward and backward-data at each batch;
   7. BLSTMP: ``bin/train_ce.main`` on phase 3's corpus with the BLSTMP
      4x1024/512 configuration of bench.py:185-205 (80-bin fbank, 8952
      senones, batch 64, 80-frame chunks, momentum 0.9, lr 0.01, clip 5):
@@ -238,20 +241,55 @@ def kernel_checks(dev):
         ms=timed(lambda: L.lstm_bwd(dys, gp, cp, mask, wh)),
         plain_ms=timed(lambda: L.lstm_bwd_plain(dys, gp, cp, mask, wh), n=3, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-    # odd shapes: B=70 takes two launches of the 64-row kernel, H=64 a small grid
-    xs = torch.tensor((rng.randn(7, 70, 256) * 0.5).astype(np.float32), device=dev)
-    ws = torch.tensor(rng.uniform(-0.1, 0.1, (64, 256)).astype(np.float32),
-                      device=dev).to(torch.bfloat16)
-    mk = torch.ones(7, 70, device=dev)
-    mk[4:, 0] = 0.0
-    got = L.lstm_fwd(xs, ws, mk)
-    want = L.lstm_fwd_plain(xs, ws, mk)
-    torch.cuda.synchronize()
-    check("K2 lstm_fwd ys at T=7 B=70 H=64", got[0], want[0], TOL["lstm_fwd"])
-    ds = torch.tensor(rng.randn(7, 70, 64).astype(np.float32), device=dev)
-    check("K3 lstm_bwd at T=7 B=70 H=64", L.lstm_bwd(ds, want[2], want[1], mk, ws),
-          L.lstm_bwd_plain(ds, want[2], want[1], mk, ws), TOL["lstm_bwd"])
+    lstm_shape_checks(dev)
     return rows
+
+
+# K2/K3 against their plain versions beyond the flagship's shape: 16, 32, 64
+# and 70 rows (70 takes two launches of 64) at H=1024 and at the small grids
+# of H=64 and H=48 (K2: 8 and 6 CTAs in clusters of 2; K3: 4 and 3 CTAs)
+LSTM_SHAPES = [(b, h) for h in (1024, 64, 48) for b in (16, 32, 64, 70)]
+
+
+def lstm_shape_checks(dev, t_len: int = 24) -> None:
+    """Phase 2, K2/K3 at LSTM_SHAPES with rows padded from different frames
+    on; two calls of each kernel on the same inputs must agree bit for bit
+    (the cluster sums run in a fixed order, with no atomics)."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    rng = np.random.RandomState(4)
+    for b, h in LSTM_SHAPES:
+        what = f"T={t_len} B={b} H={h}"
+        xp = torch.tensor((rng.randn(t_len, b, 4 * h) * 0.5).astype(np.float32), device=dev)
+        wh = torch.tensor((rng.uniform(-1, 1, (h, 4 * h)) / math.sqrt(h)).astype(np.float32),
+                          device=dev).to(torch.bfloat16)
+        mask = torch.ones(t_len, b, device=dev)
+        for r in range(0, b, 5):
+            mask[1 + (7 * r) % (t_len - 1):, r] = 0.0
+        got = L.lstm_fwd(xp, wh, mask)
+        again = L.lstm_fwd(xp, wh, mask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail(f"K2 at {what}: two calls on the same inputs differ")
+        yp, cp, gp = L.lstm_fwd_plain(xp, wh, mask)
+        check(f"K2 lstm_fwd ys at {what}", got[0], yp, TOL["lstm_fwd"])
+        check(f"K2 lstm_fwd cs at {what}", got[1], cp, TOL["lstm_fwd"])
+        check(f"K2 lstm_fwd gates (bf16) at {what}", got[2], gp, TOL["lstm_fwd_gates"])
+        dys = torch.tensor((rng.randn(t_len, b, h) * 0.1).astype(np.float32), device=dev)
+        dg = L.lstm_bwd(dys, gp, cp, mask, wh)
+        dg2 = L.lstm_bwd(dys, gp, cp, mask, wh)
+        torch.cuda.synchronize()
+        if not torch.equal(dg, dg2):
+            fail(f"K3 at {what}: two calls on the same inputs differ")
+        check(f"K3 lstm_bwd dgates at {what}", dg, L.lstm_bwd_plain(dys, gp, cp, mask, wh),
+              TOL["lstm_bwd"])
+    for h in sorted({h for _, h in LSTM_SHAPES}):
+        k2, k3 = L.lstm_clusters(h, dev)
+        print(f"LSTM kernels at H={h}: K2 {h // 8} CTAs in clusters of {k2}, "
+              f"K3 {h // 16} CTAs in clusters of {k3}", flush=True)
 
 
 def mfcc_opts(spec: dict):
@@ -713,8 +751,9 @@ def blstm_grad_check(dev, proj: int = 0):
 
 def recurrence_sweep(dev):
     """Phase 6: K2/K3 time against T and B at H=1024, which separates the
-    per-step cost (slope in T) from the fixed cost of a launch, and shows
-    whether a step's cost grows with the batch rows it stages."""
+    per-step cost (slope in T) from the fixed cost of a launch and shows how
+    a step's cost grows with the batch rows; beside it at each B, cuDNN's
+    bf16 ``nn.LSTM`` forward and backward-data (the yardsticks of phase 2)."""
     import numpy as np
     import torch
 
@@ -723,8 +762,12 @@ def recurrence_sweep(dev):
     rng = np.random.RandomState(1)
     wh = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (H, 4 * H)).astype(np.float32),
                       device=dev).to(torch.bfloat16)
+    cudnn = torch.nn.LSTM(H, H).to(device=dev, dtype=torch.bfloat16)
+    cudnn.flatten_parameters()
+    for prm in cudnn.parameters():
+        prm.requires_grad_(False)
     print("recurrence sweep (H=1024): T, B, K2 ms, K3 ms, K2 us/step, K3 us/step", flush=True)
-    for b in (16, 64):
+    for b in (16, 32, 64):
         for t in (10, 40, 80):
             xp = torch.tensor((rng.randn(t, b, 4 * H) * 0.5).astype(np.float32), device=dev)
             mask = torch.ones(t, b, device=dev)
@@ -735,6 +778,15 @@ def recurrence_sweep(dev):
             print(f"  sweep T={t:3d} B={b:3d}  K2 {f_ms:.4f} ms  K3 {b_ms:.4f} ms  "
                   f"K2 {1e3 * f_ms / t:.2f} us/step  K3 {1e3 * b_ms / t:.2f} us/step",
                   flush=True)
+        x_lib = torch.randn(T, b, H, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lib_f = timed(lambda: cudnn(x_lib))
+        x_req = x_lib.clone().requires_grad_(True)
+        out, _ = cudnn(x_req)
+        d_out = torch.randn_like(out)
+        lib_b = timed(lambda: torch.autograd.grad(out, x_req, d_out, retain_graph=True))
+        print(f"  cuDNN T={T} B={b:3d}  fwd {lib_f:.4f} ms ({1e3 * lib_f / T:.2f} us/step)  "
+              f"backward-data {lib_b:.4f} ms ({1e3 * lib_b / T:.2f} us/step)", flush=True)
 
 
 def write_corpus(root: str, n_utts: int = 128, seconds=(1.0, 3.0), num_labels: int = SENONES,

@@ -8,7 +8,8 @@ back to the CPU quietly.
 
 Kernels: every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>.so`` at the repository root on first use (or when
-the source is newer than the library) and loaded with ``ctypes``. The
+the source, or any ``csrc/*.cuh`` header, is newer than the library) and
+loaded with ``ctypes``. The
 sources have a plain C interface and include no PyTorch headers, so a build
 takes seconds. ``build_all`` starts one ``nvcc`` per source at once.
 """
@@ -81,9 +82,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header beside it (a header may be included by any source)."""
     lib = _lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    inputs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def _start_build(name: str) -> subprocess.Popen:

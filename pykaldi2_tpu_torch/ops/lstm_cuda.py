@@ -18,8 +18,10 @@ results outside the kernels (lstm_pallas.py:580-593).
 
 On the H100 the kernels are bound by the per-step latency of exchanging the
 new state across the grid, not by bytes or flops; see the note at the top of
-``csrc/lstm.cu`` for the persistent cooperative design (Wh slices resident in
-shared memory, mma.sync, one grid barrier per step).
+``csrc/lstm.cu`` for the persistent designs (Wh slices resident in shared
+memory, mma.sync, one grid barrier per step; K2/K3 split each step's product
+over a thread-block cluster and sum the partials in distributed shared
+memory). ``lstm_clusters`` reports the cluster sizes K2/K3 launch with.
 
 Streams stay fp32 at every size: the JAX package's bf16 stream modes
 (``_stream_dtype``, ``_stream_dtype_proj``) and its batch tiling
@@ -232,6 +234,8 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_lstm_bwd.restype = ci
         lib.pk2_lstm_max_batch.argtypes = []
         lib.pk2_lstm_max_batch.restype = ci
+        lib.pk2_lstm_clusters.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.pk2_lstm_clusters.restype = ci
         lib.pk2_lstmp_fwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
         lib.pk2_lstmp_fwd.restype = ci
         lib.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
@@ -252,11 +256,24 @@ def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple, dev: torch.de
 
 
 def _check_hidden(h: int):
-    # H/8 CTAs must be co-resident, and one CTA's shared memory holds the
-    # Wh slice plus a 64-row bf16 copy of h: both cap H at 1024
+    # the kernels' CTAs (H/8 or H/16) must be co-resident, and one CTA's
+    # shared memory holds its Wh slice plus a 64-row staging buffer: both cap
+    # H at 1024
     if h < 16 or h % 16 or h > 1024:
         raise ValueError(f"LSTM kernels take a hidden size that is a multiple of 16 "
                          f"and at most 1024, got {h}")
+
+
+def lstm_clusters(h: int, dev: torch.device) -> Tuple[int, int]:
+    """The thread-block cluster sizes K2 and K3 launch with at hidden size
+    ``h`` on ``dev`` (0: the clusters do not fit on the card at once)."""
+    _check_hidden(h)
+    lib = _lib()
+    k2, k3 = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        D.check_launch(lib.pk2_lstm_clusters(h, ctypes.byref(k2), ctypes.byref(k3)),
+                       "LSTM cluster query")
+    return k2.value, k3.value
 
 
 def lstm_fwd(xp: Tensor, wh_b: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:

@@ -34,14 +34,95 @@ SAME_ARITH = dict(rtol=1e-5, atol=1e-5)   # same bf16-operand math, fp32 sum ord
 VS_SCAN = dict(rtol=2e-2, atol=2e-2)      # bf16 Wh/h against the fp32 scan
 
 
-def _seq_data(seed=0, t=6, b=8, h=128):
+def _seq_data(seed=0, t=6, b=8, h=128, w_scale=0.15):
     rng = np.random.RandomState(seed)
     xp = (rng.randn(t, b, 4 * h) * 0.7).astype(np.float32)
-    wh = rng.uniform(-0.15, 0.15, (h, 4 * h)).astype(np.float32)
+    wh = rng.uniform(-w_scale, w_scale, (h, 4 * h)).astype(np.float32)
     mask = np.ones((t, b), np.float32)
     mask[t // 2:, -1] = 0.0      # one right-padded row
-    mask[1:, 2] = 0.0            # one row with a single valid frame
+    if b > 2:
+        mask[1:, 2] = 0.0        # one row with a single valid frame
+    for r in range(8, b, 3):     # beyond 8 rows, tails from different frames
+        mask[1 + r % (t - 1):, r] = 0.0
     return xp, wh, mask
+
+
+# K2/K3 (csrc/lstm.cu) split the batch into launches of 64 rows and H over
+# H/8 (K2) or H/16 (K3) CTAs in clusters; chip_smoke.py checks the kernels
+# against the plain versions at such shapes, and these cases hold the plain
+# versions to the reference there. The Pallas kernels take B a multiple of 8
+# (any H in interpret mode): B=8..72 at H=128, 256 and the small grids of
+# H=16, 48, 64. At B=1 and B=17 they refuse the shape (``_tile_b`` finds no
+# batch tile), and a float64 numpy recurrence is the reference.
+#
+# Each side rounds h (or dgates) to bf16 after fp32 sums taken in another
+# order, so a value within ~1e-7 of a rounding edge can round either way;
+# later steps then differ by ~2^-9·|h|·|Wh|. Over the ~10^5 rounded values of
+# the largest shapes such a flip is likely, so above B·H = 8192 Wh is drawn
+# from ±0.01, which keeps a flip's effect below SAME_ARITH; a wrong product
+# still moves the gates by ~1e-2.
+PALLAS_SHAPES = [(8, 128), (24, 128), (64, 128), (72, 128), (8, 256), (24, 256), (64, 256),
+                 (72, 256), (8, 16), (8, 48), (8, 64)]
+EDGE_SHAPES = [(1, 16), (17, 16), (1, 48), (17, 48), (1, 64), (17, 64)]
+
+
+def _w_scale(b, h):
+    return 0.15 if b * h <= 8192 else 0.01
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest, ties to even) through float32, as float64."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return u.view(np.float32).astype(np.float64)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _np_lstm_fwd(xp, wh, mask):
+    """float64 recurrence with the kernels' rounding points: bf16 h and Wh
+    into the product, everything else float64; gates unrounded."""
+    t_len, b, h4 = xp.shape
+    h = h4 // 4
+    w = _bf16(wh)
+    hs, c = np.zeros((b, h)), np.zeros((b, h))
+    ys, cs, gates = [], [], []
+    for t in range(t_len):
+        pre = xp[t].astype(np.float64) + _bf16(hs) @ w
+        i, f = _sigmoid(pre[:, :h]), _sigmoid(pre[:, h:2 * h])
+        g, o = np.tanh(pre[:, 2 * h:3 * h]), _sigmoid(pre[:, 3 * h:])
+        c_new = f * c + i * g
+        m = mask[t][:, None]
+        hs = m * (o * np.tanh(c_new)) + (1.0 - m) * hs
+        c = m * c_new + (1.0 - m) * c
+        ys.append(hs)
+        cs.append(c)
+        gates.append(np.concatenate([i, f, g, o], axis=-1))
+    return np.stack(ys), np.stack(cs), np.stack(gates)
+
+
+def _np_lstm_bwd(dys, gates, cs, mask, wh):
+    """float64 reverse recurrence with bf16 dgates and Wh into dh's product."""
+    t_len, b, h = dys.shape
+    wt = _bf16(wh).T
+    dh_s, dc_s = np.zeros((b, h)), np.zeros((b, h))
+    out = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        m = mask[t][:, None]
+        dh_total = dh_s + dys[t]
+        i, f, g, o = (gates[t][:, k * h:(k + 1) * h].astype(np.float64) for k in range(4))
+        c_prev = cs[t - 1] if t > 0 else np.zeros((b, h))
+        tanh_c = np.tanh(cs[t].astype(np.float64))
+        dh_m = m * dh_total
+        dc = dh_m * o * (1.0 - tanh_c * tanh_c) + m * dc_s
+        dg = np.concatenate([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                             dc * i * (1.0 - g * g), dh_m * tanh_c * o * (1.0 - o)], axis=-1)
+        out[t] = dg
+        dh_s = _bf16(dg) @ wt + (1.0 - m) * dh_total
+        dc_s = dc * f + (1.0 - m) * dc_s
+    return np.stack(out)
 
 
 def test_lstm_seq_forward_matches_pallas(pallas_interpret):
@@ -67,8 +148,20 @@ def test_lstm_seq_gradients_match_pallas(pallas_interpret):
     np.testing.assert_allclose(to_np(wt.grad), to_np(gw_ref), rtol=1e-4, atol=1e-5)
 
 
-def test_k3_plain_matches_pallas_bwd_kernel(pallas_interpret):
-    xp, wh, mask = _seq_data(seed=2)
+@pytest.mark.parametrize("b,h", PALLAS_SHAPES + EDGE_SHAPES)
+def test_k3_plain_matches_pallas_bwd_kernel(pallas_interpret, b, h):
+    """K3's plain version against ``_lstm_bwd_pallas`` in interpret mode on
+    the Pallas forward's saved tensors; at B=1 and 17 against
+    ``_np_lstm_bwd`` on the plain forward's."""
+    xp, wh, mask = _seq_data(seed=2, b=b, h=h, w_scale=_w_scale(b, h))
+    wh_t = torch.from_numpy(wh).to(torch.bfloat16)
+    if LP._tile_b(b, h) == 0:
+        ys, cs, gates = L.lstm_fwd_plain(torch.from_numpy(xp), wh_t, torch.from_numpy(mask))
+        dys = np.random.RandomState(3).randn(*ys.shape).astype(np.float32)
+        ref = _np_lstm_bwd(dys.astype(np.float64), to_np(gates), to_np(cs), mask, wh)
+        got = L.lstm_bwd(torch.from_numpy(dys), gates, cs, torch.from_numpy(mask), wh_t)
+        np.testing.assert_allclose(to_np(got), ref, **SAME_ARITH)
+        return
     wh_b = jnp.asarray(wh).astype(jnp.bfloat16)
     m3 = jnp.asarray(mask[..., None])
     ys, cs, gates = LP._lstm_fwd_pallas(jnp.asarray(xp), wh_b, m3)
@@ -78,21 +171,28 @@ def test_k3_plain_matches_pallas_bwd_kernel(pallas_interpret):
                               jnp.swapaxes(wh_b, 0, 1), jnp.float32)
     t_gates = torch.from_numpy(np.array(gates.astype(jnp.float32))).to(torch.bfloat16)
     got = L.lstm_bwd(torch.from_numpy(dys), t_gates, torch.from_numpy(np.array(cs)),
-                     torch.from_numpy(mask), torch.from_numpy(wh).to(torch.bfloat16))
+                     torch.from_numpy(mask), wh_t)
     np.testing.assert_allclose(to_np(got), to_np(ref), **SAME_ARITH)
 
 
-def test_k2_plain_outputs_match_pallas_fwd_kernel(pallas_interpret):
-    xp, wh, mask = _seq_data(seed=4)
-    ys, cs, gates = LP._lstm_fwd_pallas(jnp.asarray(xp), jnp.asarray(wh).astype(jnp.bfloat16),
-                                        jnp.asarray(mask[..., None]))
+@pytest.mark.parametrize("b,h", PALLAS_SHAPES + EDGE_SHAPES)
+def test_k2_plain_outputs_match_pallas_fwd_kernel(pallas_interpret, b, h):
+    """K2's plain version against ``_lstm_fwd_pallas`` in interpret mode; at
+    B=1 and 17 against ``_np_lstm_fwd``."""
+    xp, wh, mask = _seq_data(seed=4, b=b, h=h, w_scale=_w_scale(b, h))
+    if LP._tile_b(b, h) == 0:
+        ys, cs, gates = _np_lstm_fwd(xp, wh, mask)
+    else:
+        ys, cs, gates = LP._lstm_fwd_pallas(jnp.asarray(xp), jnp.asarray(wh).astype(jnp.bfloat16),
+                                            jnp.asarray(mask[..., None]))
+        gates = gates.astype(jnp.float32)
     y2, c2, g2 = L.lstm_fwd(torch.from_numpy(xp), torch.from_numpy(wh).to(torch.bfloat16),
                             torch.from_numpy(mask))
     np.testing.assert_allclose(to_np(y2), to_np(ys), **SAME_ARITH)
     np.testing.assert_allclose(to_np(c2), to_np(cs), **SAME_ARITH)
     assert g2.dtype == torch.bfloat16
     # saved gates are bf16: allow one bf16 ulp where fp32 noise crosses a rounding edge
-    np.testing.assert_allclose(to_np(g2), np.asarray(gates.astype(jnp.float32)), atol=4e-3)
+    np.testing.assert_allclose(to_np(g2), np.asarray(gates), atol=4e-3)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
