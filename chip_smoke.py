@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shapes (B=64 rows of 80-frame chunks, 80 fbank bins, H=1024), with the
      tolerances below, and time kernel, plain version and library call;
      K4 for Kaldi's mfcc_hires options and its 13-cepstra default, K5/K6 at
-     the BLSTMP shapes (P=512) in both directions; K7-K10 likewise on the
+     the BLSTMP shapes (P=512) in both directions, K6 also at H=256, P=128
+     (B=70: two launches) and H=P=1024, each K6 call made twice and the two
+     required equal bit for bit; K7-K10 likewise on the
      probe lattice of bench.py:626-647 (B=32, T=448, K=A=256, 8952 pdfs);
      K2/K3 also at B in {16, 32, 64, 70} x H in {1024, 64, 48} with padded
      rows, each called twice on the same inputs, which must agree bit for
@@ -47,8 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      SE train step per criterion;
  10. fixed-denominator sequence training: K11 against its plain version on
      the all-COO tiles of bench.py:463-499's 96,001-state chain graph (both
-     orientations, R=16 and 32, timed beside its bound and a BSR
-     ``torch.sparse.mm``); ``bin/compute_priors.main`` on a corpus of 48
+     orientations, R=16 and 32, each called twice and required equal bit for
+     bit, timed beside its bound and a BSR ``torch.sparse.mm``);
+     ``bin/compute_priors.main`` on a corpus of 48
      utterances of 3.5-4 s (random pdf-ids below 8952); ``bin/train_se.main
      -den_graph`` on the chain graph (the block route, K11) with the
      flagship LSTM seeded from phase 3's checkpoint, se.yaml's settings at
@@ -142,6 +145,33 @@ def timed(fn, n: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def timed_graph(fn, n: int = 50) -> float:
+    """Mean device ms per call from a CUDA graph of n calls (timed over 5
+    replays): a kernel whose wrapper takes longer on the host than the kernel
+    takes on the card is timed by the kernel, not by the host's launch rate."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * n)
 
 
 def bound_ms(nbytes: float, flops_by_peak) -> tuple:
@@ -340,7 +370,8 @@ def lstmp_checks(dev) -> dict:
     """Phase 2, K5/K6: the LSTMP recurrence of one (layer, direction) at
     T=80, B=64, H=1024, P=512, with padded rows, in both directions (the
     reversed one runs time-flipped inputs, as models/lstm.py does), against
-    the plain versions; then a B=70 (two launches), H=256, P=128 case."""
+    the plain versions; then a B=70 (two launches), H=256, P=128 case and,
+    for K6, an H=P=1024 one. Every K6 call is made twice (``k6_check``)."""
     import numpy as np
     import torch
 
@@ -366,11 +397,7 @@ def lstmp_checks(dev) -> dict:
                      check(f"K5 lstmp_fwd {label} cs", cs, cp, TOL["lstmp_fwd"])]
         check(f"K5 lstmp_fwd {label} gates (bf16)", gates, gp, TOL["lstmp_fwd_bf16"])
         check(f"K5 lstmp_fwd {label} hfull (bf16)", hfull, hp, TOL["lstmp_fwd_bf16"])
-        dg, dm = L.lstm_proj_bwd(dys, gp, cp, m_in, wh, wp)
-        torch.cuda.synchronize()
-        wg, wm = L.lstm_proj_bwd_plain(dys, gp, cp, m_in, wh, wp)
-        bwd_errs += [check(f"K6 lstmp_bwd {label} dgates", dg, wg, TOL["lstmp_bwd"]),
-                     check(f"K6 lstmp_bwd {label} dhpm", dm, wm, TOL["lstmp_bwd"])]
+        bwd_errs += k6_check(f"T={T} B={B} H={H} P={PROJ} {label}", dys, gp, cp, m_in, wh, wp)
     # odd shapes: B=70 takes two launches of the 64-row kernel
     xs = torch.tensor((rng.randn(7, 70, 1024) * 0.5).astype(np.float32), device=dev)
     whs = torch.tensor(rng.uniform(-0.1, 0.1, (128, 1024)).astype(np.float32),
@@ -384,9 +411,27 @@ def lstmp_checks(dev) -> dict:
     torch.cuda.synchronize()
     check("K5 lstmp_fwd ys at T=7 B=70 H=256 P=128", got[0], want[0], TOL["lstmp_fwd"])
     ds = torch.tensor(rng.randn(7, 70, 128).astype(np.float32), device=dev)
-    check("K6 lstmp_bwd at T=7 B=70 H=256 P=128",
-          L.lstm_proj_bwd(ds, want[2], want[1], mk, whs, wps)[0],
-          L.lstm_proj_bwd_plain(ds, want[2], want[1], mk, whs, wps)[0], TOL["lstmp_bwd"])
+    k6_check("T=7 B=70 H=256 P=128 forward", ds, want[2], want[1], mk, whs, wps)
+    # the reversed direction runs on the states of a time-flipped forward
+    rev = L.lstm_proj_fwd_plain(xs.flip(0).contiguous(), whs, wps, mk.flip(0).contiguous())
+    k6_check("T=7 B=70 H=256 P=128 reversed", ds.flip(0).contiguous(), rev[2], rev[1],
+             mk.flip(0).contiguous(), whs, wps)
+    # H = P = 1024: the largest shared-memory layout K6 takes
+    t_big = min(24, T)
+    wh_big = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (H, 4 * H)).astype(np.float32),
+                          device=dev).to(torch.bfloat16)
+    wp_big = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (H, H)).astype(np.float32),
+                          device=dev).to(torch.bfloat16)
+    d_big = torch.tensor((rng.randn(t_big, B, H) * 0.1).astype(np.float32), device=dev)
+    for label, flip in (("forward", False), ("reversed", True)):
+        f = (lambda a: a.flip(0).contiguous()) if flip else (lambda a: a.contiguous())
+        m_big = f(mask[:t_big])
+        _y, c_big, g_big, _h = L.lstm_proj_fwd_plain(f(xp[:t_big]), wh_big, wp_big, m_big)
+        k6_check(f"T={t_big} B={B} H={H} P={H} {label}", f(d_big), g_big, c_big, m_big, wh_big,
+                 wp_big)
+    for h, p in ((H, PROJ), (256, 128), (H, H)):
+        print(f"K6 at H={h} P={p}: {h // 16} CTAs in clusters of "
+              f"{L.lstmp_bwd_cluster(h, p, dev)}", flush=True)
 
     # times at the BLSTMP shapes; the yardstick is one cuDNN LSTMP direction
     cudnn = torch.nn.LSTM(H, H, proj_size=PROJ).to(device=dev, dtype=torch.bfloat16)
@@ -421,7 +466,29 @@ def lstmp_checks(dev) -> dict:
             replaces=f"pykaldi2_tpu/ops/lstm_pallas.py:{line}", max_abs_err=err,
             ms=timed(fn), plain_ms=timed(plain, n=3, warmup=1), bound_ms=bms, bound_by=by,
             library_ms=lib)
+    k6 = rows["lstm_proj_bwd"]
+    print(f"K6 at T={T} B={B} H={H} P={PROJ}: {k6['ms']:.4f} ms a call, "
+          f"{1e3 * k6['ms'] / T:.2f} us a step; cuDNN LSTMP backward-data {lib_bwd:.4f} ms, "
+          f"{1e3 * lib_bwd / T:.2f} us a step", flush=True)
     return rows
+
+
+def k6_check(what: str, dys, gates, cs, mask, wh, wp) -> list:
+    """K6 called twice on the same inputs (the two results must be equal bit
+    for bit: the cluster sums run in a fixed order, with no atomics), then
+    held against its plain version; returns the two max errors."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    dg, dm = L.lstm_proj_bwd(dys, gates, cs, mask, wh, wp)
+    dg2, dm2 = L.lstm_proj_bwd(dys, gates, cs, mask, wh, wp)
+    torch.cuda.synchronize()
+    if not (torch.equal(dg, dg2) and torch.equal(dm, dm2)):
+        fail(f"K6 at {what}: two calls on the same inputs differ")
+    wg, wm = L.lstm_proj_bwd_plain(dys, gates, cs, mask, wh, wp)
+    return [check(f"K6 lstmp_bwd dgates at {what}", dg, wg, TOL["lstmp_bwd"]),
+            check(f"K6 lstmp_bwd dhpm at {what}", dm, wm, TOL["lstmp_bwd"])]
 
 
 def print_rows(rows: dict) -> None:
@@ -675,9 +742,12 @@ def blockfb_checks(dev, g=None) -> tuple:
             x = torch.rand(rows, g.num_padded, generator=gen, device=dev)
             x[:, g.num_states:] = 0.0      # padded states: 0 in linear form
             got = block_matvec(x, g, transpose)
+            again = block_matvec(x, g, transpose)
             torch.cuda.synchronize()
-            want = block_matvec_plain(x, g, transpose)
             label = f"K11 block_matvec R={rows} {'transposed' if transpose else 'forward'}"
+            if not torch.equal(got, again):
+                fail(f"{label}: two calls on the same inputs differ")
+            want = block_matvec_plain(x, g, transpose)
             scale = want.abs().max(dim=1, keepdim=True).values
             worst = float(((got - want).abs() / (BLOCK_TOL * scale)).max())
             err = float((got - want).abs().max())
@@ -703,13 +773,14 @@ def blockfb_checks(dev, g=None) -> tuple:
             r = dict(name="block_matvec", route="cuda",
                      source="pykaldi2_tpu_torch/csrc/blockfb.cu",
                      replaces="pykaldi2_tpu/ops/fb_block.py:297",
-                     ms=timed(lambda: block_matvec(x, g, transpose), n=50),
+                     ms=timed_graph(lambda: block_matvec(x, g, transpose)),
                      plain_ms=timed(lambda: block_matvec_plain(x, g, transpose), n=10),
                      bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            eager = timed(lambda: block_matvec(x, g, transpose), n=50)
             lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
-            print(f"kernel {label}: {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
-                  f"library (BSR sparse.mm) {lib} ms | bound {bms:.4f} ms ({by}, {nbytes} bytes)",
-                  flush=True)
+            print(f"kernel {label}: {r['ms']:.4f} ms (CUDA graph of 50 calls; eager calls "
+                  f"{eager:.4f} ms) | plain {r['plain_ms']:.4f} ms | library (BSR sparse.mm) "
+                  f"{lib} ms | bound {bms:.4f} ms ({by}, {nbytes} bytes)", flush=True)
             if row is None:
                 row = r
     row["max_abs_err"] = max(errs)

@@ -60,6 +60,10 @@ def build_argparser():
     p.add_argument("-log_interval", type=int, default=None)
     p.add_argument("-multihost", action="store_true",
                    help="multi-host training (not ported yet: comes with the DDP slice)")
+    p.add_argument("-debug_nans", action="store_true",
+                   help="torch.autograd anomaly detection (sanitizer mode)")
+    p.add_argument("-single_device", action="store_true",
+                   help="accepted for the reference's CLI; the port runs on one device")
     p.add_argument("-profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of steps "
                         f"{PROFILE_START}..{PROFILE_START + PROFILE_STEPS} into DIR")
@@ -96,6 +100,7 @@ def main(argv=None, device: Optional[str] = None):
     if args.dropout is not None:
         cfg.model.dropout = args.dropout
     cfg.trainer.exp_dir = args.exp_dir
+    torch.autograd.set_detect_anomaly(args.debug_nans)
 
     log = setup_logging(args.exp_dir)
     metrics_log = MetricsLogger(args.exp_dir)

@@ -63,6 +63,9 @@
 // (column 4u + gate), so each owner thread publishes its four units' gates
 // as 32 contiguous bytes. The planes reuse the staging buffer's space.
 //
+// K6, the LSTMP backward, takes K3's layout for both of its products; see
+// its note below.
+//
 // Batches above MAX_B rows are split into several launches by the caller.
 
 #include <cuda_runtime.h>
@@ -72,13 +75,12 @@
 
 namespace cg = cooperative_groups;
 
-#define UNITS 8               // hidden units owned by one K2, K5 or K6 CTA
+#define UNITS 8               // hidden units owned by one K2 or K5 CTA
 #define NCOL (4 * UNITS)      // gate columns owned by one CTA
 #define MAX_B 64              // batch rows per launch
 #define THREADS 256
 #define NWARPS (THREADS / 32)
 #define PAD 8                 // bf16 row padding: conflict-free fragment loads
-#define KCHUNK 512            // gate columns of dgates staged per pass (K6)
 #define MAX_PAIRS ((MAX_B * UNITS + THREADS - 1) / THREADS)
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.f / (1.f + expf(-x)); }
@@ -608,35 +610,33 @@ lstm_bwd_kernel(const float* __restrict__ dys,           // [T, ldb, H]
 // the bf16 peak. As for K2/K3, each step depends on the whole previous
 // state, so the recurrence is bound by the latency of grid-wide exchanges.
 //
-// Design, K2/K3's (one persistent cooperative launch, weight slices
-// resident in shared memory, mma.sync bf16 with fp32 sums, state carried in
-// registers), with one change the projection forces: every step needs two
-// grid-wide exchanges, not one. Forward: each CTA computes the gates of its
+// K5's design is the first K2/K3 design (one persistent cooperative launch,
+// weight slices resident in shared memory, mma.sync bf16 with fp32 sums, state
+// carried in registers), with one change the projection forces: every step
+// needs two grid-wide exchanges, not one. Each CTA computes the gates of its
 // UNITS hidden units from all of hp (exchange 2 of the previous step), then
-// every hp column needs all of h_full (exchange 1). Backward: each hp
-// column's dhp needs the dgates of all units, then each unit's dh_full needs
-// all of dhp_m. Computing all of hp in every CTA instead would cost
+// every hp column needs all of h_full (exchange 1). The backward, K6, has the
+// same two dependencies (each hp column's dhp needs the dgates of all units,
+// then each unit's dh_full needs all of dhp_m) and K3's split-K layout; see
+// its own note below. Computing all of hp in every CTA instead would cost
 // 64*1024*512 MACs per CTA per step.
 //
-// Ownership of the projection: the H/8 CTAs that own hidden units also own
-// the P columns, in groups of PCOLS = 8 (mma's n). With P/8 groups and H/8
-// CTAs, the groups are replicated rsplit = min(H/P, 4) times and each copy
-// takes every rsplit-th 16-row m-tile of the batch, so all CTAs work and
-// each stages only its own rows of h_full (forward) or dgates (backward) from
-// L2: at H=1024, P=512 each CTA owns 8 columns of 32 rows. Within a CTA the
-// eight warps split the k-steps of the product (warp w takes k-steps w,
-// w+8, ...) over all owned m-tiles, and the partial sums meet in shared
-// memory. Resident: forward, the Wh columns of the owned units' gates
-// [32 x P] and the Wp columns of the owned hp columns [8 x H]; backward,
-// the Wh rows of the owned hp columns [8 x 4H] (for dhp = dgates.Wh^T) and
-// the Wp rows of the owned units [8 x P] (for dh_full = dhp_m.Wp^T). The
-// staged state (hp, then h_full; dgates in chunks, then dhp_m) takes turns
-// in one buffer, which also holds the partial sums once a product is done.
-// At H=P=1024 that is 222,848 bytes (forward) and 214,272 (backward) of the
-// 232,448 a block may use; the wrapper takes H a multiple of 16 up to 1024
-// and P a multiple of 16 up to H. The exchanges need no double buffers: a
-// buffer is rewritten only after the barrier that follows its last read.
-// h_full is saved in bf16 for dWp and doubles as the forward's exchange.
+// K5's ownership of the projection: the H/8 CTAs that own hidden units also
+// own the P columns, in groups of PCOLS = 8 (mma's n). With P/8 groups and
+// H/8 CTAs, the groups are replicated rsplit = min(H/P, 4) times and each
+// copy takes every rsplit-th 16-row m-tile of the batch, so all CTAs work and
+// each stages only its own rows of h_full from L2: at H=1024, P=512 each CTA
+// owns 8 columns of 32 rows. Within a CTA the eight warps split the k-steps
+// of the product (warp w takes k-steps w, w+8, ...) over all owned m-tiles,
+// and the partial sums meet in shared memory. Resident: the Wh columns of the
+// owned units' gates [32 x P] and the Wp columns of the owned hp columns
+// [8 x H]. The staged state (hp, then h_full) takes turns in one buffer,
+// which also holds the partial sums once a product is done. At H=P=1024 that
+// is 222,848 bytes of the 232,448 a block may use; the wrapper takes H a
+// multiple of 16 up to 1024 and P a multiple of 16 up to H. The exchanges
+// need no double buffers: a buffer is rewritten only after the barrier that
+// follows its last read. h_full is saved in bf16 for dWp and doubles as the
+// forward's exchange.
 // ---------------------------------------------------------------------------
 
 #define PCOLS 8                    // projection columns per column group (mma n)
@@ -879,6 +879,58 @@ lstmp_fwd_kernel(const float* __restrict__ xp,            // [T, ldb, 4H] (rows 
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6: LSTMP backward, split-K over a thread-block cluster
+//
+// Layout (K3's): H/16 CTAs of K3_UNITS = 16 units in clusters of C, picked
+// per (H, P) as the largest of 8, 4, 2, 1 that divides H/16, whose shared
+// memory fits and whose clusters are co-resident. Two grid exchanges a step:
+// - phase 1, dhp = bf16(dgates) . Wh^T (K = 4H, N = P): cluster q owns NP
+//   dhp columns from p0 = q.NP (k6_np: the P columns over the clusters, a
+//   power of 2 of at least 16; columns at or past P are zero rows of the
+//   resident block); CTA r keeps Wh rows p0.. for its exchange columns
+//   [r.4H/C, (r+1).4H/C) resident and stages only that slice of the
+//   unit-major dgates exchange, multiplied as its cp.async groups land; the
+//   partial planes are summed over the cluster through DSMEM in rank order,
+//   each CTA taking NP/C columns of all rows (masked carry, dys, the mask,
+//   then dhpm and the bf16 dhp_m exchange);
+// - phase 2, dh_full = bf16(dhp_m) . Wp^T (K = P, N = the CTA's 16 units):
+//   every CTA stages all of dhp_m against its resident Wp rows; then each
+//   thread does the gate math of one row and four units (inputs fetched as
+//   the step began) and publishes their dgates as 32 contiguous bytes of the
+//   exchange.
+// The exchanges need no double buffers: each is rewritten only after the
+// grid barrier that follows its last read. The phase-1 planes, read by the
+// peers, alias the staging buffer, which is next written after the grid
+// barrier that every peer reaches only once its pulls are done.
+//
+// Why: clock stamps of the first K6 (128 CTAs, each staging 256 KB of dgates
+// a step in eight unoverlapped passes) put 64% of a 24 us step in phase 1.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, B=64, T=80,
+// H=1024, P=512): 0.94 ms a call, 11.7 us a step, against 1.92 ms before;
+// the two grid barriers now take a fifth of a step (tools/kernel_split.py).
+// ---------------------------------------------------------------------------
+
+#define K6_KC 512  // staged columns per pass (256 where 512 does not fit)
+
+// dhp columns a K6 cluster owns (host and device agree)
+__host__ __device__ constexpr int k6_np(int H, int P, int C) {
+  int np = 16;
+  while (np * (H / (K3_UNITS * C)) < P) np *= 2;
+  return np;
+}
+__host__ __device__ constexpr int k6_ntw(int np) { return np == 32 || np == 64 ? 4 : 2; }
+__host__ __device__ constexpr int k6_nkp(int np) { return NWARPS / (np / 8 / k6_ntw(np)); }
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+__host__ __device__ constexpr size_t k6_smem(int H, int P, int C, int kc) {
+  return (size_t)k6_np(H, P, C) * (4 * H / C + PAD) * 2 + (size_t)K3_UNITS * (P + PAD) * 2 +
+         cmax(cmax((size_t)MAX_B * ((4 * H / C < kc ? 4 * H / C : kc) + PAD) * 2,
+                   (size_t)MAX_B * ((P < kc ? P : kc) + PAD) * 2),
+              cmax((size_t)k6_nkp(k6_np(H, P, C)) * MAX_B * (k6_np(H, P, C) + PAD) * 4,
+                   (size_t)NWARPS * MAX_B * (K3_UNITS + PAD) * 4));
+}
+
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 lstmp_bwd_kernel(const float* __restrict__ dys,           // [T, ldb, P]
                  const __nv_bfloat16* __restrict__ gates, // [T, ldb, 4H]
@@ -888,146 +940,174 @@ lstmp_bwd_kernel(const float* __restrict__ dys,           // [T, ldb, P]
                  const __nv_bfloat16* __restrict__ wp,    // [H, P]
                  float* __restrict__ dgates,              // [T, ldb, 4H]
                  float* __restrict__ dhpm,                // [T, ldb, P] masked dhp
-                 __nv_bfloat16* dgbuf,                    // [nb, 4H] exchange of bf16(dgates)
+                 __nv_bfloat16* dgbuf,                    // [nb, 4H] exchange, unit-major
                  __nv_bfloat16* dpbuf,                    // [nb, P] exchange of bf16(dhp_m)
-                 int T, int nb, int ldb, int H, int P) {
+                 int T, int nb, int ldb, int H, int P, int kc) {
+  static_assert(MAX_B * K3_UNITS / 4 == THREADS, "one (row, four units) per thread");
   cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int H4 = 4 * H;
-  const int ldw = H4 + PAD, ldp = P + PAD, ldd = KCHUNK + PAD;
-  __nv_bfloat16* Wr = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [PCOLS][ldw]
-  __nv_bfloat16* Wu = Wr + PCOLS * ldw;                              // [UNITS][ldp]
-  __nv_bfloat16* Xs = Wu + UNITS * ldp;                              // staged operand; partials
-  float* Pp = reinterpret_cast<float*>(Xs);
-  const int u0 = blockIdx.x * UNITS;
+  const int H4 = 4 * H, KS = H4 / C, NP = k6_np(H, P, C), NPC = NP / C;
+  const int ntw = k6_ntw(NP), ng = NP / 8 / ntw, nkp = NWARPS / ng;
+  const int kc1 = min(KS, kc), kc2 = min(P, kc);
+  const int ldw = KS + PAD, ldu = P + PAD, ldp1 = NP + PAD, ldp2 = K3_UNITS + PAD;
+  __nv_bfloat16* Wr = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NP][ldw]
+  __nv_bfloat16* Wu = Wr + NP * ldw;                                 // [16][ldu]
+  __nv_bfloat16* Ds = Wu + K3_UNITS * ldu;                           // staged operand
+  float* Pl = reinterpret_cast<float*>(Ds);  // partial planes, after each product
+  const int r = (int)cluster.block_rank();
+  const int p0 = (blockIdx.x / C) * NP, j0 = r * KS, u0 = blockIdx.x * K3_UNITS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
   const int mtiles = (nb + 15) / 16;
-  const int mt = warp & 3, kh = warp >> 2;  // step 2: 4 row tiles x 2 k-parities
-  const ProjRole role = proj_role(P, mtiles);
+  const bool phase1 = p0 < P;  // the same for the whole cluster
 
-  // resident weights: Wr[n][k] = Wh[j0 + n][k] (dhp = dgates . Wh^T);
-  // Wu[u][j] = Wp[u0 + u][j] (dh_full = dhp_m . Wp^T)
-  if (role.j0 >= 0) {
-    for (int idx = tid; idx < PCOLS * H4; idx += THREADS) {
-      const int n = idx / H4, k = idx % H4;
-      Wr[n * ldw + k] = wh[(size_t)(role.j0 + n) * H4 + k];
-    }
+  // resident: Wr[n][k] = Wh[p0 + n][c(j0 + k)] (dhp = dgates . Wh^T), where
+  // exchange column j = 4 * unit + gate holds Wh column c(j) = gate * H + unit;
+  // Wu[u][k] = Wp[u0 + u][k] (dh_full = dhp_m . Wp^T)
+  for (int idx = tid; idx < NP * KS; idx += THREADS) {
+    const int n = idx / KS, rem = idx % KS, q = rem / (KS / 4), uu = rem % (KS / 4);
+    Wr[n * ldw + 4 * uu + q] = p0 + n < P ? wh[(size_t)(p0 + n) * H4 + q * H + j0 / 4 + uu]
+                                          : __float2bfloat16(0.f);
   }
-  for (int idx = tid; idx < UNITS * P; idx += THREADS) {
-    const int u = idx / P, j = idx % P;
-    Wu[u * ldp + j] = wp[(size_t)(u0 + u) * P + j];
+  for (int idx = tid; idx < K3_UNITS * P; idx += THREADS) {
+    const int u = idx / P, k = idx % P;
+    Wu[u * ldu + k] = wp[(size_t)(u0 + u) * P + k];
   }
   __syncthreads();
 
-  float keep_r[MAX_HP], dc_r[MAX_PAIRS];  // (1-m).dhp_total and dc of step t+1
+  // phase-1 outputs of this thread: pairs of columns (row pb[i], columns
+  // p0 + pc[i], + 1) of the CTA's NPC columns of the cluster's NP
+  int pb[2], pc[2];
+  bool own[2];
 #pragma unroll
-  for (int i = 0; i < MAX_HP; ++i) keep_r[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAX_PAIRS; ++i) dc_r[i] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int p = tid + i * THREADS;
+    pb[i] = p / (NPC / 2);
+    pc[i] = r * NPC + 2 * (p % (NPC / 2));
+    own[i] = phase1 && p < MAX_B * NPC / 2 && pb[i] < nb && p0 + pc[i] < P;
+  }
+  float2 keep_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};  // (1-m).dhp_total
+  // phase-2 outputs: row b, units col .. col + 3
+  const int b = tid >> 2, col = u0 + 4 * (tid & 3);
+  const bool live = b < nb;
+  float dc_r[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s;
-    // 1. the owned dhp columns of the owned rows: bf16(dgates_{t+1}) . Wh^T
-    //    + (1-m_{t+1}).dhp_total_{t+1} + dys_t, then the mask of step t
-    if (role.j0 >= 0) {
-      float acc[MAX_MT][4];
+    // this step's per-frame inputs, in flight during the product
+    float2 dy_t[2];
+    float m1[2];
 #pragma unroll
-      for (int i = 0; i < MAX_MT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      if (s > 0) {
-        for (int kc = 0; kc < H4; kc += KCHUNK) {
-          const int kw = min(KCHUNK, H4 - kc);
-          stage_owned(Xs, ldd, dgbuf + kc, H4, role, nb, kw);
-          __syncthreads();
-          group_mma(acc, Xs, ldd, Wr + kc, ldw, kw, role, warp, g, tg);
-          __syncthreads();
-        }
-        store_partials(Pp, acc, role, warp, g, tg);
-        __syncthreads();
+    for (int i = 0; i < 2; ++i) {
+      if (own[i]) {
+        dy_t[i] = *reinterpret_cast<const float2*>(dys + ((size_t)t * ldb + pb[i]) * P + p0 +
+                                                   pc[i]);
+        m1[i] = mask[(size_t)t * ldb + pb[i]];
       }
+    }
+    float4 c_t, cp_t;
+    uint2 g_t[4];
+    float m_t = 0.f;
+    if (live) {
+      const size_t o = ((size_t)t * ldb + b) * H + col;
+      c_t = *reinterpret_cast<const float4*>(cs + o);
+      cp_t = t > 0 ? *reinterpret_cast<const float4*>(cs + o - (size_t)ldb * H)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      const __nv_bfloat16* gt = gates + ((size_t)t * ldb + b) * H4 + col;
 #pragma unroll
-      for (int i = 0; i < MAX_HP; ++i) {
-        const int p = tid + i * THREADS, lr = p / PCOLS, jl = p % PCOLS;
-        if (lr < role.cnt * 16) {
-          const int b = role_row(role, lr);
-          if (b < nb) {
-            const float rec = (s > 0) ? sum_partials(Pp, b, jl) : 0.f;
-            const size_t o = ((size_t)t * ldb + b) * P + role.j0 + jl;
-            const float total = (rec + keep_r[i]) + dys[o];
-            const float m = mask[(size_t)t * ldb + b];
-            const float dm = m * total;
-            dhpm[o] = dm;
-            dpbuf[(size_t)b * P + role.j0 + jl] = __float2bfloat16(dm);
-            keep_r[i] = (1.f - m) * total;
+      for (int q = 0; q < 4; ++q) g_t[q] = *reinterpret_cast<const uint2*>(gt + q * H);
+      m_t = mask[(size_t)t * ldb + b];
+    }
+
+    // 1. the cluster's dhp columns: bf16(dgates_{t+1}) . Wh^T + (1-m_{t+1}).
+    //    dhp_total_{t+1} + dys_t, then the mask of step t
+    float2 rec[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+    if (s > 0 && phase1) {
+      if (ntw == 4)
+        product_dispatch<4>(mtiles, Pl, ldp1, Ds, kc1 + PAD, dgbuf + j0, H4, nb, KS, KS, kc1, Wr,
+                            ldw, (warp % ng) * 4, warp / ng, nkp, g, tg);
+      else
+        product_dispatch<2>(mtiles, Pl, ldp1, Ds, kc1 + PAD, dgbuf + j0, H4, nb, KS, KS, kc1, Wr,
+                            ldw, (warp % ng) * 2, warp / ng, nkp, g, tg);
+      __syncthreads();
+      sum_planes(Pl, ldp1, nkp, mtiles * 16, NP);
+      cluster.sync();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (own[i]) {
+          float2 v[C];  // all loads in flight before the sums, added in rank order
+#pragma unroll
+          for (int p = 0; p < C; ++p)
+            v[p] = *reinterpret_cast<const float2*>(cluster.map_shared_rank(Pl, p) +
+                                                    pb[i] * ldp1 + pc[i]);
+#pragma unroll
+          for (int p = 0; p < C; ++p) {
+            rec[i].x += v[p].x;
+            rec[i].y += v[p].y;
           }
         }
       }
     }
-    grid.sync();
-    // 2. the owned units: dh_full = bf16(dhp_m) . Wp^T, then the gate gradients
-    stage_rows(Xs, ldp, dpbuf, P, mtiles * 16, nb, P);
-    __syncthreads();
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (mt < mtiles) {
-      const __nv_bfloat16* a0 = Xs + (mt * 16 + g) * ldp + tg * 2;
-      const __nv_bfloat16* a1 = a0 + 8 * ldp;
-      const __nv_bfloat16* bp = Wu + g * ldp + tg * 2;
-      for (int k0 = kh * 16; k0 < P; k0 += 32) {
-        uint32_t a[4], b[2];
-        a[0] = ld_u32(a0 + k0);
-        a[1] = ld_u32(a1 + k0);
-        a[2] = ld_u32(a0 + k0 + 8);
-        a[3] = ld_u32(a1 + k0 + 8);
-        b[0] = ld_u32(bp + k0);
-        b[1] = ld_u32(bp + k0 + 8);
-        mma_16816(acc, a, b);
-      }
-    }
-    __syncthreads();
-    if (mt < mtiles) {
-      float* p0 = Pp + (kh * MAX_B + mt * 16 + g) * UNITS + tg * 2;
-      p0[0] = acc[0];
-      p0[1] = acc[1];
-      p0[8 * UNITS] = acc[2];
-      p0[8 * UNITS + 1] = acc[3];
-    }
-    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < MAX_PAIRS; ++i) {
-      const int p = tid + i * THREADS;
-      if (p < nb * UNITS) {
-        const int b = p / UNITS, u = p % UNITS, col = u0 + u;
-        const float dh = Pp[b * UNITS + u] + Pp[(MAX_B + b) * UNITS + u];
-        const size_t o = ((size_t)t * ldb + b) * H + col;
-        const float m = mask[(size_t)t * ldb + b];
-        const float dc_in = dc_r[i];
-        const __nv_bfloat16* gt = gates + ((size_t)t * ldb + b) * H4 + col;
-        const float ig = __bfloat162float(gt[0]), fg = __bfloat162float(gt[H]);
-        const float gg = __bfloat162float(gt[2 * H]), og = __bfloat162float(gt[3 * H]);
-        const float c = cs[o];
-        const float c_prev = (t > 0) ? cs[o - (size_t)ldb * H] : 0.f;
-        const float tc = tanhf(c);
-        const float d_o = dh * tc;
-        const float dc = dh * og * (1.f - tc * tc) + m * dc_in;
-        const float d_i = dc * gg, d_f = dc * c_prev, d_g = dc * ig;
-        const float dgi = d_i * ig * (1.f - ig);
-        const float dgf = d_f * fg * (1.f - fg);
-        const float dgg = d_g * (1.f - gg * gg);
-        const float dgo = d_o * og * (1.f - og);
-        float* dgt = dgates + ((size_t)t * ldb + b) * H4 + col;
-        dgt[0] = dgi;
-        dgt[H] = dgf;
-        dgt[2 * H] = dgg;
-        dgt[3 * H] = dgo;
-        __nv_bfloat16* xb = dgbuf + (size_t)b * H4 + col;
-        xb[0] = __float2bfloat16(dgi);
-        xb[H] = __float2bfloat16(dgf);
-        xb[2 * H] = __float2bfloat16(dgg);
-        xb[3 * H] = __float2bfloat16(dgo);
-        dc_r[i] = dc * fg + (1.f - m) * dc_in;
+    for (int i = 0; i < 2; ++i) {
+      if (own[i]) {
+        const size_t o = ((size_t)t * ldb + pb[i]) * P + p0 + pc[i];
+        const float m = m1[i];
+        const float tx = (rec[i].x + keep_r[i].x) + dy_t[i].x;
+        const float ty = (rec[i].y + keep_r[i].y) + dy_t[i].y;
+        *reinterpret_cast<float2*>(dhpm + o) = make_float2(m * tx, m * ty);
+        *reinterpret_cast<__nv_bfloat162*>(dpbuf + (size_t)pb[i] * P + p0 + pc[i]) =
+            __floats2bfloat162_rn(m * tx, m * ty);
+        keep_r[i] = make_float2((1.f - m) * tx, (1.f - m) * ty);
       }
     }
     grid.sync();
+
+    // 2. the CTA's units: dh_full = bf16(dhp_m) . Wp^T, then the gate gradients
+    product_dispatch<2>(mtiles, Pl, ldp2, Ds, kc2 + PAD, dpbuf, P, nb, P, P, kc2, Wu, ldu, 0, warp,
+                        NWARPS, g, tg);
+    __syncthreads();
+    sum_planes(Pl, ldp2, NWARPS, mtiles * 16, K3_UNITS);
+    __syncthreads();
+    if (live) {
+      const float m = m_t;
+      const float4 dh4 = *reinterpret_cast<const float4*>(Pl + b * ldp2 + 4 * (tid & 3));
+      const float dh[4] = {dh4.x, dh4.y, dh4.z, dh4.w};
+      const float cv[4] = {c_t.x, c_t.y, c_t.z, c_t.w};
+      const float cpv[4] = {cp_t.x, cp_t.y, cp_t.z, cp_t.w};
+      float dg[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t w0 = (e & 2) ? g_t[0].y : g_t[0].x, w1 = (e & 2) ? g_t[1].y : g_t[1].x;
+        const uint32_t w2 = (e & 2) ? g_t[2].y : g_t[2].x, w3 = (e & 2) ? g_t[3].y : g_t[3].x;
+        const float ig = (e & 1) ? bf16_hi(w0) : bf16_lo(w0);
+        const float fg = (e & 1) ? bf16_hi(w1) : bf16_lo(w1);
+        const float gg = (e & 1) ? bf16_hi(w2) : bf16_lo(w2);
+        const float og = (e & 1) ? bf16_hi(w3) : bf16_lo(w3);
+        const float dc_in = dc_r[e];
+        const float tc = tanhf(cv[e]);
+        const float d_o = dh[e] * tc;
+        const float dc = dh[e] * og * (1.f - tc * tc) + m * dc_in;
+        const float d_i = dc * gg, d_f = dc * cpv[e], d_g = dc * ig;
+        dg[0][e] = d_i * ig * (1.f - ig);
+        dg[1][e] = d_f * fg * (1.f - fg);
+        dg[2][e] = d_g * (1.f - gg * gg);
+        dg[3][e] = d_o * og * (1.f - og);
+        dc_r[e] = dc * fg + (1.f - m) * dc_in;
+      }
+      float* dgt = dgates + ((size_t)t * ldb + b) * H4 + col;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(dgt + q * H) = make_float4(dg[q][0], dg[q][1], dg[q][2], dg[q][3]);
+      // exchange columns 4*col .. 4*col + 15: each unit's four gates in turn
+      uint4* xb = reinterpret_cast<uint4*>(dgbuf + (size_t)b * H4 + 4 * col);
+      xb[0] = make_uint4(pack_bf16x2(dg[0][0], dg[1][0]), pack_bf16x2(dg[2][0], dg[3][0]),
+                         pack_bf16x2(dg[0][1], dg[1][1]), pack_bf16x2(dg[2][1], dg[3][1]));
+      xb[1] = make_uint4(pack_bf16x2(dg[0][2], dg[1][2]), pack_bf16x2(dg[2][2], dg[3][2]),
+                         pack_bf16x2(dg[0][3], dg[1][3]), pack_bf16x2(dg[2][3], dg[3][3]));
+    }
+    if (t > 0) grid.sync();
   }
 }
 
@@ -1039,11 +1119,6 @@ static size_t lstmp_fwd_smem(int H, int P) {
   return (size_t)(NCOL * (P + PAD) + PCOLS * (H + PAD) + lstmp_stage_elems(H + PAD)) *
              sizeof(__nv_bfloat16) +
          (size_t)MAX_B * NCOL * sizeof(float);
-}
-
-static size_t lstmp_bwd_smem(int H, int P) {
-  const int stage = lstmp_stage_elems(KCHUNK > P ? KCHUNK + PAD : P + PAD);
-  return (size_t)(PCOLS * (4 * H + PAD) + UNITS * (P + PAD) + stage) * sizeof(__nv_bfloat16);
 }
 
 static int launch_coop(const void* fn, int H, size_t smem, void** args, void* stream) {
@@ -1166,6 +1241,43 @@ static int k3_cluster(int H, int* err) {
   return cache[H / 16] > 0 ? cache[H / 16] : 0;
 }
 
+static const void* k6_fn(int c) {
+  switch (c) {
+    case 8: return (const void*)lstmp_bwd_kernel<8>;
+    case 4: return (const void*)lstmp_bwd_kernel<4>;
+    case 2: return (const void*)lstmp_bwd_kernel<2>;
+    default: return (const void*)lstmp_bwd_kernel<1>;
+  }
+}
+
+// K6's cluster size and pass width at (H, P): the largest of 8, 4, 2, 1 that
+// divides the H/16 CTAs, whose shared memory fits with passes of K6_KC
+// columns (or else K6_KC/2) and whose clusters fit at once; cluster size 0
+// if none does. Cached per (H, P).
+static int k6_config(int H, int P, int* csize, int* kc) {
+  static int cache[1024 / 16 + 1][1024 / 16 + 1][2];  // {0, 0}: not asked yet
+  int* c = cache[H / 16][P / 16];
+  if (!c[1]) {
+    int pick = -1, pick_kc = K6_KC;
+    for (int cs = 8; cs >= 1 && pick < 0; cs /= 2) {
+      for (int w = K6_KC; w >= K6_KC / 2 && pick < 0; w /= 2) {
+        bool fits = false;
+        const int e = clusters_fit(k6_fn(cs), H / K3_UNITS, cs, k6_smem(H, P, cs, w), &fits);
+        if (e != 0) return e;
+        if (fits) {
+          pick = cs;
+          pick_kc = w;
+        }
+      }
+    }
+    c[0] = pick;
+    c[1] = pick_kc;
+  }
+  *csize = c[0] > 0 ? c[0] : 0;
+  *kc = c[1];
+  return 0;
+}
+
 static int hidden_ok(int H) { return H >= 16 && H % 16 == 0 && H <= 1024; }
 
 extern "C" int pk2_lstm_max_batch() { return MAX_B; }
@@ -1243,11 +1355,23 @@ extern "C" int pk2_lstmp_fwd(const void* xp, const void* wh, const void* wp, con
   return launch_coop((const void*)lstmp_fwd_kernel, H, lstmp_fwd_smem(H, P), args, stream);
 }
 
+// K6's cluster size at (H, P) (0: cannot launch).
+extern "C" int pk2_lstmp_bwd_cluster(int H, int P, int* csize) {
+  *csize = 0;
+  if (!hidden_ok(H) || !proj_shape_ok(1, 1, H, P)) return (int)cudaErrorInvalidValue;
+  int kc = 0;
+  return k6_config(H, P, csize, &kc);
+}
+
 extern "C" int pk2_lstmp_bwd(const void* dys, const void* gates, const void* cs,
                              const void* mask, const void* wh, const void* wp, void* dgates,
                              void* dhpm, void* dgbuf, void* dpbuf, int T, int nb, int ldb,
                              int H, int P, void* stream) {
-  if (!proj_shape_ok(nb, T, H, P)) return (int)cudaErrorInvalidValue;
+  if (!hidden_ok(H) || !proj_shape_ok(nb, T, H, P)) return (int)cudaErrorInvalidValue;
+  int c = 0, kc = 0;
+  const int e = k6_config(H, P, &c, &kc);
+  if (e != 0) return e;
+  if (c == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const float* a_dys = (const float*)dys;
   const __nv_bfloat16* a_gates = (const __nv_bfloat16*)gates;
   const float* a_cs = (const float*)cs;
@@ -1259,6 +1383,6 @@ extern "C" int pk2_lstmp_bwd(const void* dys, const void* gates, const void* cs,
   __nv_bfloat16* a_dgbuf = (__nv_bfloat16*)dgbuf;
   __nv_bfloat16* a_dpbuf = (__nv_bfloat16*)dpbuf;
   void* args[] = {&a_dys, &a_gates, &a_cs, &a_mask, &a_wh, &a_wp, &a_dg, &a_dhpm, &a_dgbuf,
-                  &a_dpbuf, &T, &nb, &ldb, &H, &P};
-  return launch_coop((const void*)lstmp_bwd_kernel, H, lstmp_bwd_smem(H, P), args, stream);
+                  &a_dpbuf, &T, &nb, &ldb, &H, &P, &kc};
+  return launch_cluster(k6_fn(c), H / K3_UNITS, c, k6_smem(H, P, c, kc), args, stream);
 }

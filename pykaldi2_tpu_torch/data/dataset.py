@@ -1,7 +1,8 @@
 """Speech dataset: corpus index + on-demand waveform/label loading.
 
 Numpy copy of pykaldi2_tpu/data/dataset.py for the PyTorch port; host-side
-simulation and transition-id alignments raise until their slices land.
+simulation raises until its slice lands. Transition-id alignments are mapped
+to pdf-ids through the port's ``graph/transition_model.py``.
 
 Reference behavior: the ``SpeechDataset``-style class in pykaldi2/data/
 (SURVEY.md §3.1 "Dataset") — reads waveforms + frame alignments, applies the
@@ -89,10 +90,9 @@ class SpeechDataset:
                 raise ValueError(
                     "data.ali_are_pdf_ids is false but data.trans_model is unset; "
                     "a TransitionModel is required to map transition-ids to pdf-ids")
-            raise NotImplementedError(
-                "transition-id alignments need graph/transition_model.py, which "
-                "is not ported yet; it comes with the sequence-training slice "
-                "(ROADMAP.md Queue 1)")
+            from pykaldi2_tpu_torch.graph.transition_model import TransitionModel
+
+            tid_to_pdf = TransitionModel.read_kaldi(cfg.trans_model).tid_to_pdf_array()
         if cfg.hdf5:
             if cfg.wav_scp or cfg.feats_scp:
                 raise ValueError("configure either data.hdf5 or "

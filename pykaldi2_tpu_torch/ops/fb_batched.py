@@ -2,8 +2,9 @@
 
 Port of ``_seg_sum_b`` and ``_arc_acc_b`` from pykaldi2_tpu/ops/fb_batched.py
 (reference behavior: the per-lattice sums of Kaldi's lattice-functions.cc).
-The generic per-utterance arc-table forward-backward (``BatchedGraphs``)
-waits for the fixed-denominator slice.
+The generic per-utterance arc-table forward-backward (``BatchedGraphs``),
+which only the reference's tests reach, is not ported yet: ROADMAP.md Queue
+1, item 20.
 """
 
 from __future__ import annotations

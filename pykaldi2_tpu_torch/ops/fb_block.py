@@ -59,6 +59,8 @@ class BlockSparseGraph(NamedTuple):
     rowptr_t: Tensor       # [nblk + 1] int32
     segptr: Tensor         # [nblk + 1] int32: K11's segments (runs of ≤ SEG_TILES tiles) per block
     segptr_t: Tensor       # [nblk + 1] int32
+    segdesc: Tensor        # [num_seg, 4] int32: block, first tile, end tile, block's first segment
+    segdesc_t: Tensor      # [num_seg_t, 4] int32
     state_pdf: Tensor      # [Sp] int64 (padded states -> 0, never reached)
     final: Tensor          # [Sp] f32 log-prob, NEG_INF on pads
     start: int             # state index in the reordered space
@@ -74,10 +76,16 @@ class BlockSparseGraph(NamedTuple):
         return _tensor_fields_to(self, device)
 
 
-def _segptr(rowptr: np.ndarray) -> np.ndarray:
-    """CSR over K11's segments: block j's ceil(tiles_j / SEG_TILES) segments."""
+def _k11_segments(rowptr: np.ndarray):
+    """K11's segments of one orientation: the CSR over segments (block j has
+    ceil(tiles_j / SEG_TILES) of them) and each segment's descriptor (output
+    block, first tile, end tile, the block's first segment)."""
     per_block = -(-np.diff(rowptr) // SEG_TILES)
-    return np.concatenate([[0], np.cumsum(per_block)])
+    segptr = np.concatenate([[0], np.cumsum(per_block)])
+    blk = np.repeat(np.arange(len(per_block)), per_block)
+    n0 = rowptr[blk] + (np.arange(segptr[-1]) - segptr[blk]) * SEG_TILES
+    desc = np.stack([blk, n0, np.minimum(n0 + SEG_TILES, rowptr[blk + 1]), segptr[blk]], 1)
+    return segptr, desc
 
 
 def _bfs_order(num_states: int, src: np.ndarray, dst: np.ndarray, start: int) -> np.ndarray:
@@ -176,11 +184,13 @@ def pack_graph_blocks(fsa, block: int = 128, seg_len: int = 16,
     i64 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64))  # noqa: E731
     rowptr = np.searchsorted(bj, np.arange(nblk + 1))
     rowptr_t = np.searchsorted(bjt, np.arange(nblk + 1))
-    segptr, segptr_t = _segptr(rowptr), _segptr(rowptr_t)
+    segptr, segdesc = _k11_segments(rowptr)
+    segptr_t, segdesc_t = _k11_segments(rowptr_t)
     return BlockSparseGraph(
         bi=i32(bi), bj=i32(bj), wb=torch.from_numpy(wb), rowptr=i32(rowptr),
         bit=i32(bit), bjt=i32(bjt), wbt=torch.from_numpy(wbt), rowptr_t=i32(rowptr_t),
-        segptr=i32(segptr), segptr_t=i32(segptr_t),
+        segptr=i32(segptr), segptr_t=i32(segptr_t), segdesc=i32(segdesc),
+        segdesc_t=i32(segdesc_t),
         state_pdf=i64(np.concatenate([state_pdf, np.zeros(pad, np.int64)])),
         final=torch.as_tensor(np.concatenate([final, np.full(pad, NEG_INF)]),
                               dtype=torch.float32),

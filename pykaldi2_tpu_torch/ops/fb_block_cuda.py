@@ -10,10 +10,11 @@ tiles in one COO list per orientation, sorted by output block:
     out[:, j_n] += lin[:, i_n] @ W_n     for every tile n (blocks of 128 states)
 
 ``lin`` is [R, Sp] fp32, nonnegative (the recursions' linear carries); each
-orientation has its own sorted list, CSR row pointer and K11 segment
-pointer (``bi/bj/wb/rowptr/segptr`` and ``bit/bjt/wbt/rowptr_t/segptr_t``). The plain version gathers the source blocks
-(``index_select``), multiplies tile by tile (``bmm``) and sums into the
-output blocks (``index_add_``). The wrapper takes the plain version only for
+orientation has its own sorted list, CSR row pointer, K11 segment pointer
+and segment descriptors (``bi/bj/wb/rowptr/segptr/segdesc`` and
+``bit/bjt/wbt/rowptr_t/segptr_t/segdesc_t``). The plain version gathers the
+source blocks (``index_select``), multiplies tile by tile (``bmm``) and sums
+into the output blocks (``index_add_``). The wrapper takes the plain version only for
 CPU tensors; on CUDA tensors it launches K11 or raises, and
 ``block_matvec.launches`` counts the launches.
 """
@@ -35,8 +36,9 @@ def _orientation(g, transpose: bool):
 
 
 # K11 gives each CTA a run of at most this many tiles of one output block
-# (the graph's segptr), so a block that gathers from many tiles (a loop state
-# fed by every chain) is spread over several CTAs
+# (the graph's segptr and segdesc; the kernel takes up to 4), so a block that
+# gathers from many tiles (a loop state fed by every chain) is spread over
+# several CTAs
 SEG_TILES = 2
 
 # K11's per-block completion counters, by device: the kernel leaves them at 0,
@@ -92,8 +94,8 @@ def block_matvec(lin: Tensor, g, transpose: bool = False) -> Tensor:
     nonzero tiles. Same contract as ``block_matvec_plain``."""
     if lin.device.type == "cpu":
         return block_matvec_plain(lin, g, transpose)
-    src_blk, _dst, tiles, rowptr = _orientation(g, transpose)
-    segptr = g.segptr_t if transpose else g.segptr
+    src_blk, _dst, tiles, _rowptr = _orientation(g, transpose)
+    segptr, segdesc = (g.segptr_t, g.segdesc_t) if transpose else (g.segptr, g.segdesc)
     dev = lin.device
     if tiles.dtype != torch.float32:
         raise ValueError(f"K11 needs float32 tiles, the graph holds {tiles.dtype}: bf16 "
@@ -111,18 +113,18 @@ def block_matvec(lin: Tensor, g, transpose: bool = False) -> Tensor:
     _check("lin", lin, torch.float32, (r, g.num_padded), dev)
     _check("tiles", tiles, torch.float32, (nc, k, k), dev)
     _check("src_blk", src_blk, torch.int32, (nc,), dev)
-    _check("rowptr", rowptr, torch.int32, (nblk + 1,), dev)
     _check("segptr", segptr, torch.int32, (nblk + 1,), dev)
-    for name, t in (("lin", lin), ("tiles", tiles)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for K11's cp.async copies")
     nseg = g.num_seg_t if transpose else g.num_seg
+    _check("segdesc", segdesc, torch.int32, (nseg, 4), dev)
+    for name, t in (("lin", lin), ("tiles", tiles), ("segdesc", segdesc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for K11's vector loads")
     rt = lib.pk2_blockfb_row_tile(r)
     ytiles = -(-r // rt)
     partial = torch.empty((nseg, ytiles, rt, k), dtype=torch.float32, device=dev)
     out = torch.empty_like(lin)
     with torch.cuda.device(dev):
-        rc = lib.pk2_blockfb_matvec(D.ptr(lin), D.ptr(tiles), D.ptr(src_blk), D.ptr(rowptr),
+        rc = lib.pk2_blockfb_matvec(D.ptr(lin), D.ptr(tiles), D.ptr(src_blk), D.ptr(segdesc),
                                     D.ptr(segptr), D.ptr(partial),
                                     D.ptr(_counters(dev, nblk * ytiles)), D.ptr(out), r, nblk,
                                     nseg, SEG_TILES, D.current_stream_ptr(dev))

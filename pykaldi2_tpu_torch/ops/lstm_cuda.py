@@ -19,9 +19,10 @@ results outside the kernels (lstm_pallas.py:580-593).
 On the H100 the kernels are bound by the per-step latency of exchanging the
 new state across the grid, not by bytes or flops; see the note at the top of
 ``csrc/lstm.cu`` for the persistent designs (Wh slices resident in shared
-memory, mma.sync, one grid barrier per step; K2/K3 split each step's product
-over a thread-block cluster and sum the partials in distributed shared
-memory). ``lstm_clusters`` reports the cluster sizes K2/K3 launch with.
+memory, mma.sync, one grid barrier per step, two for K5/K6; K2, K3 and K6
+split each step's product over a thread-block cluster and sum the partials
+in distributed shared memory). ``lstm_clusters`` reports the cluster sizes
+K2/K3 launch with, ``lstmp_bwd_cluster`` K6's.
 
 Streams stay fp32 at every size: the JAX package's bf16 stream modes
 (``_stream_dtype``, ``_stream_dtype_proj``) and its batch tiling
@@ -240,6 +241,8 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_lstmp_fwd.restype = ci
         lib.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         lib.pk2_lstmp_bwd.restype = ci
+        lib.pk2_lstmp_bwd_cluster.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.pk2_lstmp_bwd_cluster.restype = ci
         lib._pk2_typed = True
     return lib
 
@@ -274,6 +277,17 @@ def lstm_clusters(h: int, dev: torch.device) -> Tuple[int, int]:
         D.check_launch(lib.pk2_lstm_clusters(h, ctypes.byref(k2), ctypes.byref(k3)),
                        "LSTM cluster query")
     return k2.value, k3.value
+
+
+def lstmp_bwd_cluster(h: int, p: int, dev: torch.device) -> int:
+    """The thread-block cluster size K6 launches with at hidden size ``h``
+    and projection ``p`` on ``dev`` (0: no cluster size fits)."""
+    _check_proj(h, p)
+    lib = _lib()
+    c = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        D.check_launch(lib.pk2_lstmp_bwd_cluster(h, p, ctypes.byref(c)), "K6 cluster query")
+    return c.value
 
 
 def lstm_fwd(xp: Tensor, wh_b: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:

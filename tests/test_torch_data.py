@@ -121,10 +121,44 @@ def test_unported_dataset_options_raise(corpus):
     cfg.simulation.enabled = True
     with pytest.raises(NotImplementedError, match="simulation"):
         SpeechDataset.from_config(cfg)
-    cfg = DataConfig(wav_scp=paths["wav_scp"], label_ark=paths["ali"],
-                     ali_are_pdf_ids=False, trans_model="final.mdl")
-    with pytest.raises(NotImplementedError, match="transition"):
-        SpeechDataset.from_config(cfg)
+
+
+@pytest.mark.parametrize("text_ark", [False, True])
+def test_transition_id_alignments_map_like_jax(corpus, tmp_path, text_ark):
+    """Transition-id alignments (``ali_are_pdf_ids: false``) read through a
+    final.mdl written by the port's ``TransitionModel.write_kaldi`` give both
+    packages' ``SpeechDataset.from_config`` the same pdf labels; without
+    ``trans_model`` both raise."""
+    from pykaldi2_tpu.config import DataConfig as JDataConfig
+
+    from pykaldi2_tpu_torch.graph import HmmTopology, TransitionModel
+
+    paths, ds, _ = corpus
+    tm = TransitionModel(HmmTopology.three_state(range(1, 6)))
+    mdl = str(tmp_path / "final.mdl")
+    tm.write_kaldi(mdl)
+    rng = np.random.RandomState(7)
+    tids = {u: rng.randint(1, tm.num_tids + 1, len(lab)).astype(np.int32)
+            for u, lab in ds.labels.items()}
+    ali = str(tmp_path / ("tid.ali.txt" if text_ark else "tid.ali.ark"))
+    if text_ark:
+        kaldi_io.write_text_ark(ali, sorted(tids.items()))
+    else:
+        with kaldi_io.ArkWriter(ali, kind="ivec") as w:
+            for u, v in sorted(tids.items()):
+                w.write(u, v)
+    kw = dict(wav_scp=paths["wav_scp"], label_ark=ali, ali_are_pdf_ids=False)
+    got = SpeechDataset.from_config(DataConfig(trans_model=mdl, **kw))
+    want = JDataset.from_config(JDataConfig(trans_model=mdl, **kw))
+    t2p = tm.tid_to_pdf_array()
+    assert got.utt_ids == want.utt_ids and len(got.utt_ids) == len(tids)
+    for u in got.utt_ids:
+        assert got.labels[u].dtype == want.labels[u].dtype == np.int32
+        np.testing.assert_array_equal(got.labels[u], want.labels[u])
+        np.testing.assert_array_equal(got.labels[u], t2p[tids[u]])
+    for make, cfg in ((SpeechDataset, DataConfig), (JDataset, JDataConfig)):
+        with pytest.raises(ValueError, match="trans_model"):
+            make.from_config(cfg(**kw))
 
 
 def test_device_prefetch_cpu_yields_the_batches(corpus):

@@ -94,6 +94,17 @@ def test_pack_graph_blocks_equals_jax_all_coo(case):
         per_block = np.diff(seg.numpy())
         np.testing.assert_array_equal(per_block, -(-np.diff(ptr.numpy()) // SEG_TILES))
         assert seg.numpy()[-1] == n
+    # ... and their descriptors: (block, first tile, end tile, block's first segment)
+    for ptr, seg, desc in ((tg.rowptr, tg.segptr, tg.segdesc),
+                           (tg.rowptr_t, tg.segptr_t, tg.segdesc_t)):
+        ptr, seg, desc = ptr.numpy(), seg.numpy(), desc.numpy()
+        assert desc.shape == (seg[-1], 4) and desc.dtype == np.int32
+        for j in range(nblk):
+            d = desc[seg[j]:seg[j + 1]]
+            assert (d[:, 0] == j).all() and (d[:, 3] == seg[j]).all()
+            assert d[0, 1] == ptr[j] and d[-1, 2] == ptr[j + 1]
+            np.testing.assert_array_equal(d[1:, 1], d[:-1, 2])
+            assert ((d[:, 2] - d[:, 1] >= 1) & (d[:, 2] - d[:, 1] <= SEG_TILES)).all()
     assert tg.wb.dtype == tg.wbt.dtype == torch.float32
 
 

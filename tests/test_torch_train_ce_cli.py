@@ -172,3 +172,38 @@ def test_train_ce_cli_blstmp_mfcc_tracks_jax(cli_files, pallas_interpret):
         params, state, m = step(params, state, {k: jnp.asarray(v) for k, v in b.items()},
                                 jax.random.PRNGKey(0))
         np.testing.assert_allclose(port_losses[i], float(m["loss"]), rtol=2e-5)
+
+
+def test_train_ce_cli_reference_flags_match_jax_cli(cli_files):
+    """A reference command line with ``-single_device`` and ``-debug_nans``
+    through both CLIs, warm-started from one JAX-made checkpoint: both exit
+    0 and log the same per-step losses on the same batches (Adam, fp32,
+    dither 0, dropout 0; rtol 2e-5, as the BLSTMP case above). The JAX CLI's
+    ``-debug_nans`` sets ``jax_debug_nans`` for the whole process, and the
+    port's sets autograd anomaly detection: both are set back afterwards."""
+    import jax
+
+    from pykaldi2_tpu import config as JC
+    from pykaldi2_tpu.bin.train_ce import main as jax_main
+    from pykaldi2_tpu.models import build_model as jax_build_model
+    from pykaldi2_tpu.utils import save_checkpoint as jax_save
+
+    tmp, write = cli_files
+    model = {"type": "lstm", "hidden_size": 16, "num_layers": 2, "output_size": 4,
+             "compute_dtype": "float32", "dropout": 0.0}
+    cp, dp = write(cfg_over={"model": model, "trainer": {"num_epochs": 1, "seed": 4}})
+    params = jax_build_model(JC.ModelConfig(input_size=24, **model)).init(jax.random.PRNGKey(9))
+    seed_ckpt = str(tmp / "seed.npz")
+    jax_save(seed_ckpt, params)
+    losses = {}
+    try:
+        for name, run in (("jax", jax_main), ("port", main)):
+            exp = str(tmp / name)
+            assert run(["-config", cp, "-data", dp, "-exp_dir", exp, "-seed_model", seed_ckpt,
+                        "-single_device", "-debug_nans"]) == 0
+            losses[name] = [r["loss"] for r in _metrics(exp) if "step" in r]
+    finally:
+        jax.config.update("jax_debug_nans", False)
+        torch.autograd.set_detect_anomaly(False)
+    assert len(losses["port"]) == len(losses["jax"]) >= 2
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=2e-5)
