@@ -9,10 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shapes (B=64 rows of 80-frame chunks, 80 fbank bins, H=1024), with the
      tolerances below, and time kernel, plain version and library call;
      K4 for Kaldi's mfcc_hires options and its 13-cepstra default, K5/K6 at
-     the BLSTMP shapes (P=512) in both directions, K6 also at H=256, P=128
-     (B=70: two launches) and H=P=1024, each K6 call made twice and the two
-     required equal bit for bit; K7-K10 likewise on the
+     the BLSTMP shapes (P=512) in both directions, also at H=256, P=128
+     (B=70: two launches) and H=P=1024, each K5 and K6 call made twice and
+     the two required equal bit for bit; K7-K10 likewise on the
      probe lattice of bench.py:626-647 (B=32, T=448, K=A=256, 8952 pdfs);
+     then K7-K10 on a band packed as pack_time_sync packs it (padding arcs
+     at slot 0, inactive frames, an active frame of padding only);
      K2/K3 also at B in {16, 32, 64, 70} x H in {1024, 64, 48} with padded
      rows, each called twice on the same inputs, which must agree bit for
      bit; then a small BLSTM's and a small BLSTMP's outputs and gradients on
@@ -370,8 +372,8 @@ def lstmp_checks(dev) -> dict:
     """Phase 2, K5/K6: the LSTMP recurrence of one (layer, direction) at
     T=80, B=64, H=1024, P=512, with padded rows, in both directions (the
     reversed one runs time-flipped inputs, as models/lstm.py does), against
-    the plain versions; then a B=70 (two launches), H=256, P=128 case and,
-    for K6, an H=P=1024 one. Every K6 call is made twice (``k6_check``)."""
+    the plain versions; then a B=70 (two launches), H=256, P=128 case and an
+    H=P=1024 one. Every call is made twice (``k5_check``, ``k6_check``)."""
     import numpy as np
     import torch
 
@@ -390,13 +392,9 @@ def lstmp_checks(dev) -> dict:
     fwd_errs, bwd_errs = [], []
     for label, x_in, m_in in (("forward", xp, mask),
                               ("reversed", xp.flip(0).contiguous(), mask.flip(0).contiguous())):
-        ys, cs, gates, hfull = L.lstm_proj_fwd(x_in, wh, wp, m_in)
-        torch.cuda.synchronize()
-        yp, cp, gp, hp = L.lstm_proj_fwd_plain(x_in, wh, wp, m_in)
-        fwd_errs += [check(f"K5 lstmp_fwd {label} ys", ys, yp, TOL["lstmp_fwd"]),
-                     check(f"K5 lstmp_fwd {label} cs", cs, cp, TOL["lstmp_fwd"])]
-        check(f"K5 lstmp_fwd {label} gates (bf16)", gates, gp, TOL["lstmp_fwd_bf16"])
-        check(f"K5 lstmp_fwd {label} hfull (bf16)", hfull, hp, TOL["lstmp_fwd_bf16"])
+        errs, (_yp, cp, gp, _hp) = k5_check(f"T={T} B={B} H={H} P={PROJ} {label}", x_in, wh, wp,
+                                            m_in)
+        fwd_errs += errs
         bwd_errs += k6_check(f"T={T} B={B} H={H} P={PROJ} {label}", dys, gp, cp, m_in, wh, wp)
     # odd shapes: B=70 takes two launches of the 64-row kernel
     xs = torch.tensor((rng.randn(7, 70, 1024) * 0.5).astype(np.float32), device=dev)
@@ -406,17 +404,14 @@ def lstmp_checks(dev) -> dict:
                        device=dev).to(torch.bfloat16)
     mk = torch.ones(7, 70, device=dev)
     mk[4:, 0] = 0.0
-    got = L.lstm_proj_fwd(xs, whs, wps, mk)
-    want = L.lstm_proj_fwd_plain(xs, whs, wps, mk)
-    torch.cuda.synchronize()
-    check("K5 lstmp_fwd ys at T=7 B=70 H=256 P=128", got[0], want[0], TOL["lstmp_fwd"])
+    _errs, want = k5_check("T=7 B=70 H=256 P=128", xs, whs, wps, mk)
     ds = torch.tensor(rng.randn(7, 70, 128).astype(np.float32), device=dev)
     k6_check("T=7 B=70 H=256 P=128 forward", ds, want[2], want[1], mk, whs, wps)
     # the reversed direction runs on the states of a time-flipped forward
     rev = L.lstm_proj_fwd_plain(xs.flip(0).contiguous(), whs, wps, mk.flip(0).contiguous())
     k6_check("T=7 B=70 H=256 P=128 reversed", ds.flip(0).contiguous(), rev[2], rev[1],
              mk.flip(0).contiguous(), whs, wps)
-    # H = P = 1024: the largest shared-memory layout K6 takes
+    # H = P = 1024: the largest shared-memory layouts K5 and K6 take
     t_big = min(24, T)
     wh_big = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (H, 4 * H)).astype(np.float32),
                           device=dev).to(torch.bfloat16)
@@ -426,12 +421,14 @@ def lstmp_checks(dev) -> dict:
     for label, flip in (("forward", False), ("reversed", True)):
         f = (lambda a: a.flip(0).contiguous()) if flip else (lambda a: a.contiguous())
         m_big = f(mask[:t_big])
-        _y, c_big, g_big, _h = L.lstm_proj_fwd_plain(f(xp[:t_big]), wh_big, wp_big, m_big)
+        _errs, (_y, c_big, g_big, _h) = k5_check(f"T={t_big} B={B} H={H} P={H} {label}",
+                                                 f(xp[:t_big]), wh_big, wp_big, m_big)
         k6_check(f"T={t_big} B={B} H={H} P={H} {label}", f(d_big), g_big, c_big, m_big, wh_big,
                  wp_big)
     for h, p in ((H, PROJ), (256, 128), (H, H)):
-        print(f"K6 at H={h} P={p}: {h // 16} CTAs in clusters of "
-              f"{L.lstmp_bwd_cluster(h, p, dev)}", flush=True)
+        print(f"K5 and K6 at H={h} P={p}: {h // 16} CTAs in clusters of "
+              f"{L.lstmp_fwd_cluster(h, p, dev)} and {L.lstmp_bwd_cluster(h, p, dev)}",
+              flush=True)
 
     # times at the BLSTMP shapes; the yardstick is one cuDNN LSTMP direction
     cudnn = torch.nn.LSTM(H, H, proj_size=PROJ).to(device=dev, dtype=torch.bfloat16)
@@ -466,11 +463,36 @@ def lstmp_checks(dev) -> dict:
             replaces=f"pykaldi2_tpu/ops/lstm_pallas.py:{line}", max_abs_err=err,
             ms=timed(fn), plain_ms=timed(plain, n=3, warmup=1), bound_ms=bms, bound_by=by,
             library_ms=lib)
-    k6 = rows["lstm_proj_bwd"]
+    k5, k6 = rows["lstm_proj_fwd"], rows["lstm_proj_bwd"]
+    print(f"K5 at T={T} B={B} H={H} P={PROJ}: {k5['ms']:.4f} ms a call, "
+          f"{1e3 * k5['ms'] / T:.2f} us a step; cuDNN LSTMP forward {lib_fwd:.4f} ms, "
+          f"{1e3 * lib_fwd / T:.2f} us a step", flush=True)
     print(f"K6 at T={T} B={B} H={H} P={PROJ}: {k6['ms']:.4f} ms a call, "
           f"{1e3 * k6['ms'] / T:.2f} us a step; cuDNN LSTMP backward-data {lib_bwd:.4f} ms, "
           f"{1e3 * lib_bwd / T:.2f} us a step", flush=True)
     return rows
+
+
+def k5_check(what: str, xp, wh, wp, mask) -> tuple:
+    """K5 called twice on the same inputs (the two results must be equal bit
+    for bit: the cluster sums run in a fixed order, with no atomics), then
+    held against its plain version; returns (the ys and cs errors, the plain
+    outputs)."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    got = L.lstm_proj_fwd(xp, wh, wp, mask)
+    again = L.lstm_proj_fwd(xp, wh, wp, mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail(f"K5 at {what}: two calls on the same inputs differ")
+    want = L.lstm_proj_fwd_plain(xp, wh, wp, mask)
+    errs = [check(f"K5 lstmp_fwd ys at {what}", got[0], want[0], TOL["lstmp_fwd"]),
+            check(f"K5 lstmp_fwd cs at {what}", got[1], want[1], TOL["lstmp_fwd"])]
+    check(f"K5 lstmp_fwd gates (bf16) at {what}", got[2], want[2], TOL["lstmp_fwd_bf16"])
+    check(f"K5 lstmp_fwd hfull (bf16) at {what}", got[3], want[3], TOL["lstmp_fwd_bf16"])
+    return errs, want
 
 
 def k6_check(what: str, dys, gates, cs, mask, wh, wp) -> list:
@@ -552,8 +574,9 @@ def latfb_compare(dev, label: str, obs, lat, nf, ref, rows=None) -> dict:
     active = FL._active_ts(t, nf)
     arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
     live = float(((band[3] > 0.5 * NEG_INF) * active).sum()) / (t * b * a)
+    stages, chunk = KC.smbr_fwd_ring(a, k)
     print(f"latfb {label}: B={b} T={t} K={k} A={a}, {live:.1%} of the band is live "
-          f"arcs in active frames", flush=True)
+          f"arcs in active frames; K9's ring: {stages} stages of {chunk} arcs", flush=True)
 
     def run(kernel, plain):
         got = kernel()
@@ -642,6 +665,93 @@ def latfb_probe(dev) -> dict:
     rows = {}
     latfb_compare(dev, "probe", obs, lat, nf, ints(SENONES, (b, t)), rows)
     return rows
+
+
+def latfb_padded(dev) -> dict:
+    """Phase 2, K7-K10 on ``padded_lattice``: padding arcs at slot 0,
+    inactive frames and an active frame of padding only, the paths K9 skips
+    around; then K9 with no ring, reading the band from global memory: a band
+    of 250 arcs a frame (not a multiple of 4, so no bulk copies) and one of
+    K=14,520 slots (no room for two stages). Returns {name: max_abs_err}."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    obs, lat, nf, ref = padded_lattice(dev)
+    errs = latfb_compare(dev, "packed padding", obs, lat, nf, ref)
+    cut = FL.TimeSyncLattice(*(x[:, :, :250].contiguous() for x in lat[:4]), lat.final)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t, b, k, a = 8, 2, 14520, 64
+    wide = FL.TimeSyncLattice(
+        src=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
+        dst=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
+        pdf=torch.randint(0, obs.shape[2], (b, t, a), generator=gen, device=dev,
+                          dtype=torch.int32),
+        weight=torch.randn(b, t, a, generator=gen, device=dev),
+        final=torch.full((b, k), NEG_INF, device=dev))
+    wide.src[:, 0] = 0
+    for label, o, lt, n, rf in (("A=250", obs, cut, nf, ref),
+                                ("K=14520", obs[:b, :t], wide, nf[:b].clamp(max=t), ref[:b, :t])):
+        band = FL._band(o, lt)
+        active = FL._active_ts(o.shape[1], n)
+        arc_acc = FL._arc_acc_ts(lt, rf, "pdf", None, None)
+        kk, aa = lt.num_slots, lt.src.shape[2]
+        got = KC.smbr_fwd(*band, active, arc_acc, kk)
+        torch.cuda.synchronize()
+        want = KC.smbr_fwd_plain(*band, active, arc_acc, kk)
+        stages, chunk = KC.smbr_fwd_ring(aa, kk)
+        if stages:
+            fail(f"K9 {label} was to take no ring, got {stages} stages of {chunk} arcs")
+        what = f"K9 {label} (no ring)"
+        errs["latfb_smbr_fwd"] = max(
+            errs["latfb_smbr_fwd"], close_log(f"{what} alphas", got[0], want[0]),
+            close(f"{what} aaccs", got[1], want[1], LAT_TOL["abs"], LAT_TOL["rel"]),
+            close(f"{what} norms", got[2], want[2], LAT_TOL["log"], LAT_TOL["log"]))
+    return errs
+
+
+def padded_lattice(dev, seed: int = 1):
+    """A banded lattice batch shaped as phase 9's decoded one and packed as
+    ``pack_time_sync`` packs it: B=SE_B utterances of 398-448 frames in
+    T=SE_T, K=256 slots and A=512 arcs a frame, 300-512 live arcs in an
+    active frame (~74% of the band live, as the decoded batch), padding arcs
+    at src = dst = 0 with weight NEG_INF, frames past an utterance's end all
+    padding; utterance 0 also has an active frame whose arcs are all padding
+    (frame 5), where every arc adds exp(0) = 1 to slot 0. Returns (obs
+    [B,T,123], TimeSyncLattice, num_frames [B], reference pdfs [B,T]) on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+    from pykaldi2_tpu_torch.ops.fb_lattice import TimeSyncLattice
+
+    b, t, k, a, pdfs = SE_B, SE_T, 256, 512, 3 * SE_PHONES
+    rng = np.random.RandomState(seed)
+    nf = rng.randint(t * 8 // 9, t + 1, b).astype(np.int32)
+    src = np.zeros((b, t, a), np.int32)
+    dst = np.zeros((b, t, a), np.int32)
+    w = np.full((b, t, a), NEG_INF, np.float32)
+    slots = rng.randint(100, k + 1, (b, t + 1))
+    slots[:, 0] = 1
+    for i in range(b):
+        for f in range(nf[i]):
+            n = rng.randint(300, a + 1)
+            src[i, f, :n] = rng.randint(0, slots[i, f], n)
+            dst[i, f, :n] = rng.randint(0, slots[i, f + 1], n)
+            w[i, f, :n] = -np.abs(rng.randn(n)) * 2.0
+    src[0, 5], dst[0, 5], w[0, 5] = 0, 0, NEG_INF
+    final = np.full((b, k), NEG_INF, np.float32)
+    for i in range(b):
+        final[i, : slots[i, nf[i]]] = 0.0
+    pdf = rng.randint(0, pdfs, (b, t, a)).astype(np.int32)
+    obs = (0.1 * rng.randn(b, t, pdfs)).astype(np.float32)
+    ref = rng.randint(0, pdfs, (b, t))
+    lat = TimeSyncLattice(*(torch.from_numpy(x).to(dev) for x in (src, dst, pdf, w, final)))
+    return (torch.from_numpy(obs).to(dev), lat, torch.from_numpy(nf).to(dev),
+            torch.from_numpy(ref).to(dev))
 
 
 def make_chain_graph(num_chains: int = CHAIN[0], chain_len: int = CHAIN[1],
@@ -1637,6 +1747,7 @@ def main() -> int:
     rows.update(lstmp_checks(dev))
     print_rows(rows)
     probe = latfb_probe(dev)
+    padded = latfb_padded(dev)
     blstm_grad_check(dev)
     blstm_grad_check(dev, proj=128)
     root = os.path.join(HERE, "build", "chip_smoke")
@@ -1659,9 +1770,11 @@ def main() -> int:
                          check=True).stdout.strip()
     print(smi, flush=True)
     # K7-K10: times and bounds at the decoded batch (the main path's shapes),
-    # the error the larger of the probe's and the decoded batch's
+    # the error the largest of the probe's, the padded band's and the decoded
+    # batch's
     for name, r in decoded.items():
-        rows[name] = dict(r, max_abs_err=max(r["max_abs_err"], probe[name]["max_abs_err"]))
+        rows[name] = dict(r, max_abs_err=max(r["max_abs_err"], probe[name]["max_abs_err"],
+                                             padded[name]))
     launches.update(se_launches)
     for name, n in launches.items():
         rows[name]["launches"] = n

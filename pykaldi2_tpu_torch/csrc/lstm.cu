@@ -63,8 +63,8 @@
 // (column 4u + gate), so each owner thread publishes its four units' gates
 // as 32 contiguous bytes. The planes reuse the staging buffer's space.
 //
-// K6, the LSTMP backward, takes K3's layout for both of its products; see
-// its note below.
+// K5 and K6, the LSTMP forward and backward, take K3's layout; see their
+// note below.
 //
 // Batches above MAX_B rows are split into several launches by the caller.
 
@@ -75,13 +75,11 @@
 
 namespace cg = cooperative_groups;
 
-#define UNITS 8               // hidden units owned by one K2 or K5 CTA
-#define NCOL (4 * UNITS)      // gate columns owned by one CTA
+#define UNITS 8               // hidden units owned by one K2 CTA
 #define MAX_B 64              // batch rows per launch
 #define THREADS 256
 #define NWARPS (THREADS / 32)
 #define PAD 8                 // bf16 row padding: conflict-free fragment loads
-#define MAX_PAIRS ((MAX_B * UNITS + THREADS - 1) / THREADS)
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -91,25 +89,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copies rows [0, rows16) x cols [0, ncols) of a bf16 matrix written by other
-// CTAs (row stride ld_src) into shared memory (row stride ld_dst), zero rows
-// at and beyond nvalid. L2-only loads: L1 is not coherent across SMs.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld_dst,
-                                           const __nv_bfloat16* src, int ld_src,
-                                           int rows16, int nvalid, int ncols) {
-  const int vpr = ncols / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < rows16 * vpr; idx += THREADS) {
-    const int r = idx / vpr, v = idx % vpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) val = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)r * ld_src) + v);
-    *reinterpret_cast<uint4*>(dst + r * ld_dst + v * 8) = val;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -215,12 +194,13 @@ __device__ __forceinline__ void mma_steps(float (&acc)[MT * NTW * KS][4],
 // One staged pass: columns [0, kvalid) of src land in Ds in NSUB cp.async
 // groups, and each group is multiplied with Ws[.][0, k16) as soon as it has
 // arrived, while the later groups are still in flight. Columns kvalid..k16
-// are zero in both operands.
+// are zero in both operands. The product's rows start at m-tile m0.
 template <int MT, int NTW, int KS>
 __device__ __forceinline__ void staged_pass(float (&acc)[MT * NTW * KS][4], __nv_bfloat16* Ds,
                                             int ldd, const __nv_bfloat16* src, int lds, int nb,
                                             int kvalid, int k16, const __nv_bfloat16* Ws,
-                                            int ldw, int nt0, int kp, int nkp, int g, int tg) {
+                                            int ldw, int nt0, int kp, int nkp, int g, int tg,
+                                            int m0 = 0) {
   const int ks = k16 / 16;
 #pragma unroll
   for (int q = 0; q < NSUB; ++q) {
@@ -232,8 +212,8 @@ __device__ __forceinline__ void staged_pass(float (&acc)[MT * NTW * KS][4], __nv
   for (int q = 0; q < NSUB; ++q) {
     cp_async_wait_sub(q);
     __syncthreads();
-    mma_steps<MT, NTW, KS>(acc, Ds, ldd, Ws, ldw, nt0, q * ks / NSUB, (q + 1) * ks / NSUB, kp,
-                           nkp, (g << 2) | tg);
+    mma_steps<MT, NTW, KS>(acc, Ds + m0 * 16 * ldd, ldd, Ws, ldw, nt0, q * ks / NSUB,
+                           (q + 1) * ks / NSUB, kp, nkp, (g << 2) | tg);
   }
 }
 
@@ -608,283 +588,36 @@ lstm_bwd_kernel(const float* __restrict__ dys,           // [T, ldb, H]
 // the streams (forward: xp, ys, cs, gates, hfull, weights) are ~173 MB,
 // ~52 us at 3.35 TB/s, against 2*T*B*(P*4H + H*P) = 27 GFLOP, ~27 us at
 // the bf16 peak. As for K2/K3, each step depends on the whole previous
-// state, so the recurrence is bound by the latency of grid-wide exchanges.
+// state, so the recurrence is bound by the latency of grid-wide exchanges:
+// every step needs two, since each unit's gates need all of hp and each hp
+// column needs all of h_full (and in the backward each dhp column needs the
+// dgates of all units, each unit's dh_full all of dhp_m).
 //
-// K5's design is the first K2/K3 design (one persistent cooperative launch,
-// weight slices resident in shared memory, mma.sync bf16 with fp32 sums, state
-// carried in registers), with one change the projection forces: every step
-// needs two grid-wide exchanges, not one. Each CTA computes the gates of its
-// UNITS hidden units from all of hp (exchange 2 of the previous step), then
-// every hp column needs all of h_full (exchange 1). The backward, K6, has the
-// same two dependencies (each hp column's dhp needs the dgates of all units,
-// then each unit's dh_full needs all of dhp_m) and K3's split-K layout; see
-// its own note below. Computing all of hp in every CTA instead would cost
-// 64*1024*512 MACs per CTA per step.
-//
-// K5's ownership of the projection: the H/8 CTAs that own hidden units also
-// own the P columns, in groups of PCOLS = 8 (mma's n). With P/8 groups and
-// H/8 CTAs, the groups are replicated rsplit = min(H/P, 4) times and each
-// copy takes every rsplit-th 16-row m-tile of the batch, so all CTAs work and
-// each stages only its own rows of h_full from L2: at H=1024, P=512 each CTA
-// owns 8 columns of 32 rows. Within a CTA the eight warps split the k-steps
-// of the product (warp w takes k-steps w, w+8, ...) over all owned m-tiles,
-// and the partial sums meet in shared memory. Resident: the Wh columns of the
-// owned units' gates [32 x P] and the Wp columns of the owned hp columns
-// [8 x H]. The staged state (hp, then h_full) takes turns in one buffer,
-// which also holds the partial sums once a product is done. At H=P=1024 that
-// is 222,848 bytes of the 232,448 a block may use; the wrapper takes H a
-// multiple of 16 up to 1024 and P a multiple of 16 up to H. The exchanges
-// need no double buffers: a buffer is rewritten only after the barrier that
-// follows its last read. h_full is saved in bf16 for dWp and doubles as the
-// forward's exchange.
+// Both kernels take K3's layout: H/16 CTAs of K3_UNITS = 16 units in
+// clusters of C, picked per (H, P) as the largest of 8, 4, 2, 1 that divides
+// H/16, whose shared memory fits and whose clusters are co-resident. The
+// product with the larger K (K6: dgates . Wh^T, K = 4H; K5: the projection
+// bf16(h_full) . Wp, K = H) is split over the cluster: cluster q owns NP
+// columns from p0 = q.NP (k6_np: the P columns over the clusters, a power of
+// 2 of at least 16; columns at or past P are zero rows of the resident
+// block), CTA r keeps the weight rows of its K-slice resident and stages only
+// that slice of the exchanged state, multiplied as its cp.async groups land;
+// the fp32 partials are summed over the cluster through DSMEM in rank order
+// (K6 pulls them from its peers' planes, K5's warps push them into the
+// owner's shared memory), each CTA taking NP/C columns of all rows (the same
+// bits on every run). The other product (K = P) stages the whole bf16 exchange [B, P] in
+// every CTA against the CTA's resident weight rows. Each thread does the
+// gate math of one row and four units, with the step's inputs fetched as the
+// step begins, and writes its outputs as whole vectors. The exchanges need
+// no double buffers: each is rewritten only after the grid barrier that
+// follows its last read; K6's partial planes, read by the peers, alias the
+// staging buffer, which is next written after a barrier that every peer
+// reaches only once its pulls are done.
 // ---------------------------------------------------------------------------
 
-#define PCOLS 8                    // projection columns per column group (mma n)
-#define MAX_MT (MAX_B / 16)        // 16-row m-tiles of one launch's rows
-#define MAX_HP ((MAX_B * PCOLS + THREADS - 1) / THREADS)
-#define TILES_PER_WARP ((MAX_MT * (NCOL / 8) + NWARPS - 1) / NWARPS)
-#define PARTIAL_FLOATS (NWARPS * MAX_B * PCOLS)
-
-// This CTA's share of a projection-column phase: columns [j0, j0+8) of P
-// for the m-tiles rpart, rpart + rsplit, ... (cnt of them); j0 < 0: none.
-struct ProjRole {
-  int j0, rpart, rsplit, cnt;
-};
-
-__device__ __forceinline__ ProjRole proj_role(int P, int mtiles) {
-  ProjRole r;
-  const int ngroups = P / PCOLS;
-  r.rsplit = min((int)gridDim.x / ngroups, MAX_MT);
-  r.rpart = blockIdx.x / ngroups;
-  r.j0 = (blockIdx.x % ngroups) * PCOLS;
-  r.cnt = 0;
-  if (r.rpart < r.rsplit)
-    for (int mt = r.rpart; mt < mtiles; mt += r.rsplit) ++r.cnt;
-  if (r.cnt == 0) r.j0 = -1;
-  return r;
-}
-
-// Batch row of owned row index lr (0 .. cnt*16).
-__device__ __forceinline__ int role_row(const ProjRole& r, int lr) {
-  return (r.rpart + (lr >> 4) * r.rsplit) * 16 + (lr & 15);
-}
-
-// stage_rows for the rows of the owned m-tiles only (row b lands at row b).
-__device__ __forceinline__ void stage_owned(__nv_bfloat16* dst, int ld_dst,
-                                            const __nv_bfloat16* src, int ld_src,
-                                            const ProjRole& r, int nvalid, int ncols) {
-  const int vpr = ncols / 8;
-  for (int idx = threadIdx.x; idx < r.cnt * 16 * vpr; idx += THREADS) {
-    const int row = role_row(r, idx / vpr), v = idx % vpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nvalid) val = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)row * ld_src) + v);
-    *reinterpret_cast<uint4*>(dst + row * ld_dst + v * 8) = val;
-  }
-}
-
-// acc[i] += A[rows of owned m-tile i, 0:klen] . B[0:klen, 0:8] for this
-// warp's k-steps (warp, warp + NWARPS, ...). A is [row][k] (lda), B is
-// stored [n][k] (ldb_).
-__device__ __forceinline__ void group_mma(float (*acc)[4], const __nv_bfloat16* As, int lda,
-                                          const __nv_bfloat16* Bs, int ldb_, int klen,
-                                          const ProjRole& r, int warp, int g, int tg) {
-  for (int k0 = warp * 16; k0 < klen; k0 += NWARPS * 16) {
-    uint32_t b[2];
-    const __nv_bfloat16* bp = Bs + g * ldb_ + k0 + tg * 2;
-    b[0] = ld_u32(bp);
-    b[1] = ld_u32(bp + 8);
-#pragma unroll
-    for (int i = 0; i < MAX_MT; ++i) {
-      if (i < r.cnt) {
-        const __nv_bfloat16* a0 = As + (size_t)role_row(r, i * 16 + g) * lda + k0 + tg * 2;
-        const __nv_bfloat16* a1 = a0 + 8 * lda;
-        uint32_t a[4];
-        a[0] = ld_u32(a0);
-        a[1] = ld_u32(a1);
-        a[2] = ld_u32(a0 + 8);
-        a[3] = ld_u32(a1 + 8);
-        mma_16816(acc[i], a, b);
-      }
-    }
-  }
-}
-
-// Each warp's partial sums to Pp [NWARPS][MAX_B][PCOLS] (call after a
-// __syncthreads when Pp aliases the staged operand).
-__device__ __forceinline__ void store_partials(float* Pp, float (*acc)[4], const ProjRole& r,
-                                               int warp, int g, int tg) {
-#pragma unroll
-  for (int i = 0; i < MAX_MT; ++i) {
-    if (i < r.cnt) {
-      float* p0 = Pp + ((size_t)warp * MAX_B + role_row(r, i * 16 + g)) * PCOLS + tg * 2;
-      p0[0] = acc[i][0];
-      p0[1] = acc[i][1];
-      p0[8 * PCOLS] = acc[i][2];
-      p0[8 * PCOLS + 1] = acc[i][3];
-    }
-  }
-}
-
-__device__ __forceinline__ float sum_partials(const float* Pp, int b, int jl) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NWARPS; ++w) s += Pp[((size_t)w * MAX_B + b) * PCOLS + jl];
-  return s;
-}
-
-// Shared-memory layouts (bf16 elements unless noted); host and device agree.
-__host__ __device__ __forceinline__ int lstmp_stage_elems(int rows_ld) {
-  const int a = MAX_B * rows_ld, b = PARTIAL_FLOATS * 2;
-  return a > b ? a : b;
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-lstmp_fwd_kernel(const float* __restrict__ xp,            // [T, ldb, 4H] (rows offset)
-                 const __nv_bfloat16* __restrict__ wh,    // [P, 4H]
-                 const __nv_bfloat16* __restrict__ wp,    // [H, P]
-                 const float* __restrict__ mask,          // [T, ldb]
-                 float* __restrict__ ys,                  // [T, ldb, P] hp
-                 float* __restrict__ cs,                  // [T, ldb, H]
-                 __nv_bfloat16* __restrict__ gates,       // [T, ldb, 4H] activated i,f,g,o
-                 __nv_bfloat16* hfull,                    // [T, ldb, H]: saved and exchanged
-                 __nv_bfloat16* hpbuf,                    // [nb, P] exchange of bf16(hp)
-                 int T, int nb, int ldb, int H, int P) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int H4 = 4 * H;
-  const int ldp = P + PAD, ldh = H + PAD;
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NCOL][ldp]
-  __nv_bfloat16* Wq = Ws + NCOL * ldp;                               // [PCOLS][ldh]
-  __nv_bfloat16* Xs = Wq + PCOLS * ldh;                              // staged hp / h_full; partials
-  float* Cs = reinterpret_cast<float*>(Xs + lstmp_stage_elems(ldh)); // [MAX_B][NCOL]
-  float* Pp = reinterpret_cast<float*>(Xs);
-  const int u0 = blockIdx.x * UNITS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const int mtiles = (nb + 15) / 16;
-  const int ntiles = NCOL / 8;
-  const ProjRole role = proj_role(P, mtiles);
-
-  // resident weights: Ws[n][k] = Wh[k][gate(n)*H + u0 + unit(n)];
-  // Wq[n][k] = Wp[k][j0 + n]
-  for (int idx = tid; idx < NCOL * P; idx += THREADS) {
-    const int k = idx / NCOL, n = idx % NCOL;
-    Ws[n * ldp + k] = wh[(size_t)k * H4 + (n / UNITS) * H + u0 + (n % UNITS)];
-  }
-  if (role.j0 >= 0) {
-    for (int idx = tid; idx < PCOLS * H; idx += THREADS) {
-      const int k = idx / PCOLS, n = idx % PCOLS;
-      Wq[n * ldh + k] = wp[(size_t)k * P + role.j0 + n];
-    }
-  }
-  __syncthreads();
-
-  float c_r[MAX_PAIRS], hp_r[MAX_HP];
-#pragma unroll
-  for (int i = 0; i < MAX_PAIRS; ++i) c_r[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAX_HP; ++i) hp_r[i] = 0.f;
-
-  for (int t = 0; t < T; ++t) {
-    // 1. gates of the owned units: xp_t + bf16(hp_{t-1}) . Wh
-    if (t > 0) {
-      stage_rows(Xs, ldp, hpbuf, P, mtiles * 16, nb, P);
-      __syncthreads();
-      float acc[TILES_PER_WARP][4];
-#pragma unroll
-      for (int i = 0; i < TILES_PER_WARP; ++i) {
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-        const int tile = warp + i * NWARPS;
-        if (tile < mtiles * ntiles) {
-          const int mt = tile / ntiles, nt = tile % ntiles;
-          const __nv_bfloat16* a0 = Xs + (mt * 16 + g) * ldp + tg * 2;
-          const __nv_bfloat16* a1 = a0 + 8 * ldp;
-          const __nv_bfloat16* bp = Ws + (nt * 8 + g) * ldp + tg * 2;
-          for (int k0 = 0; k0 < P; k0 += 16) {
-            uint32_t a[4], b[2];
-            a[0] = ld_u32(a0 + k0);
-            a[1] = ld_u32(a1 + k0);
-            a[2] = ld_u32(a0 + k0 + 8);
-            a[3] = ld_u32(a1 + k0 + 8);
-            b[0] = ld_u32(bp + k0);
-            b[1] = ld_u32(bp + k0 + 8);
-            mma_16816(acc[i], a, b);
-          }
-          float* c0 = Cs + (mt * 16 + g) * NCOL + nt * 8 + tg * 2;
-          c0[0] = acc[i][0];
-          c0[1] = acc[i][1];
-          c0[8 * NCOL] = acc[i][2];
-          c0[8 * NCOL + 1] = acc[i][3];
-        }
-      }
-      __syncthreads();
-    }
-    // 2. gate math and the cell of the owned units; publish bf16(h_full)
-    const float* xpt = xp + (size_t)t * ldb * H4;
-#pragma unroll
-    for (int i = 0; i < MAX_PAIRS; ++i) {
-      const int p = tid + i * THREADS;
-      if (p < nb * UNITS) {
-        const int b = p / UNITS, u = p % UNITS, col = u0 + u;
-        float pre[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          pre[q] = xpt[(size_t)b * H4 + q * H + col];
-          if (t > 0) pre[q] += Cs[b * NCOL + q * UNITS + u];
-        }
-        const float ig = sigmoid_(pre[0]), fg = sigmoid_(pre[1]);
-        const float gg = tanhf(pre[2]), og = sigmoid_(pre[3]);
-        const float cn = fg * c_r[i] + ig * gg;
-        const float hf = og * tanhf(cn);
-        const float m = mask[(size_t)t * ldb + b];
-        c_r[i] = m * cn + (1.f - m) * c_r[i];
-        const size_t o = ((size_t)t * ldb + b) * H + col;
-        cs[o] = c_r[i];
-        hfull[o] = __float2bfloat16(hf);
-        __nv_bfloat16* gt = gates + ((size_t)t * ldb + b) * H4 + col;
-        gt[0] = __float2bfloat16(ig);
-        gt[H] = __float2bfloat16(fg);
-        gt[2 * H] = __float2bfloat16(gg);
-        gt[3 * H] = __float2bfloat16(og);
-      }
-    }
-    grid.sync();
-    // 3. the owned hp columns of the owned rows: bf16(h_full) . Wp, masked carry
-    if (role.j0 >= 0) {
-      stage_owned(Xs, ldh, hfull + (size_t)t * ldb * H, H, role, nb, H);
-      __syncthreads();
-      float acc[MAX_MT][4];
-#pragma unroll
-      for (int i = 0; i < MAX_MT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      group_mma(acc, Xs, ldh, Wq, ldh, H, role, warp, g, tg);
-      __syncthreads();
-      store_partials(Pp, acc, role, warp, g, tg);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < MAX_HP; ++i) {
-        const int p = tid + i * THREADS, lr = p / PCOLS, jl = p % PCOLS;
-        if (lr < role.cnt * 16) {
-          const int b = role_row(role, lr);
-          if (b < nb) {
-            const float proj = sum_partials(Pp, b, jl);
-            const float m = mask[(size_t)t * ldb + b];
-            hp_r[i] = m * proj + (1.f - m) * hp_r[i];
-            ys[((size_t)t * ldb + b) * P + role.j0 + jl] = hp_r[i];
-            hpbuf[(size_t)b * P + role.j0 + jl] = __float2bfloat16(hp_r[i]);
-          }
-        }
-      }
-    }
-    grid.sync();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K6: LSTMP backward, split-K over a thread-block cluster
-//
-// Layout (K3's): H/16 CTAs of K3_UNITS = 16 units in clusters of C, picked
-// per (H, P) as the largest of 8, 4, 2, 1 that divides H/16, whose shared
-// memory fits and whose clusters are co-resident. Two grid exchanges a step:
+// K6: LSTMP backward, split-K over a thread-block cluster. Two grid
+// exchanges a step:
 // - phase 1, dhp = bf16(dgates) . Wh^T (K = 4H, N = P): cluster q owns NP
 //   dhp columns from p0 = q.NP (k6_np: the P columns over the clusters, a
 //   power of 2 of at least 16; columns at or past P are zero rows of the
@@ -1112,34 +845,289 @@ lstmp_bwd_kernel(const float* __restrict__ dys,           // [T, ldb, P]
 }
 
 // ---------------------------------------------------------------------------
-// C interface. Each returns a cudaError_t code: 0 on a clean launch.
+// K5: LSTMP forward, redesigned for the H100 (see the LSTMP note above):
+// - phase 1, gates = xp_t + bf16(hp_{t-1}) . Wh (K = P, N = the CTA's 64
+//   gate columns, n = 16 * gate + unit): every CTA stages all of the bf16
+//   hp exchange in cp.async groups against its resident Wh columns; each
+//   warp owns four whole tiles over all of K (four independent chains, no
+//   k-part planes to add); each thread adds its row's xp_t (loaded as the
+//   step began), does the gate math of four units and writes cs, the bf16
+//   gates and the bf16 h_full, which doubles as the exchange;
+// - phase 2, hp = bf16(h_full_t) . Wp (K = H), split over the cluster: CTA
+//   r stages its H/C columns of h_full against its resident Wp rows, each
+//   warp pushes its whole tiles' columns into the shared memory of the CTA
+//   that owns them (DSMEM stores, no round trip), and after one cluster
+//   barrier each CTA adds its NP/C columns' C slices in rank order: the
+//   masked carry, ys and the bf16 hp exchange.
+// Why: clock stamps of the first K5 (128 CTAs of 8 units, each staging all
+// of hp and 32 rows of h_full with synchronous loads, one mma chain a tile)
+// are in PERF.md; this layout stages 80 KB a CTA in 64 CTAs, overlapped
+// with the products, where the first staged 128 KB in 128. Measured on an
+// H100 80GB HBM3 at 700 W (tools/kernel_ab.py, B=64, T=80, H=1024, P=512):
+// 0.82 ms a call against 1.06 ms; phase 1 (30% of a step) and the two grid
+// barriers (25%) are what remains (tools/kernel_split.py). No faster, so
+// not kept: hp multicast over the cluster with cp.async.bulk on mbarriers
+// (0.88 ms), and step counters in place of the first grid barrier (the wait
+// moves to the second).
 // ---------------------------------------------------------------------------
 
-static size_t lstmp_fwd_smem(int H, int P) {
-  return (size_t)(NCOL * (P + PAD) + PCOLS * (H + PAD) + lstmp_stage_elems(H + PAD)) *
-             sizeof(__nv_bfloat16) +
-         (size_t)MAX_B * NCOL * sizeof(float);
+#define K5_NCOLS (4 * K3_UNITS)  // gate columns of one K5 CTA
+
+// K5's products give each warp whole output tiles over all of K (no k-part
+// planes): nt n-tiles in groups of 2, and the four m-tiles of the rows in
+// min(8 / groups, 4) groups of k5_mt(nt); warps past that repeat a group's
+// tiles and keep none of them.
+__host__ __device__ constexpr int k5_mgroups(int nt) { return 8 / (nt / 2) < 4 ? 8 / (nt / 2) : 4; }
+__host__ __device__ constexpr int k5_mt(int nt) { return 4 / k5_mgroups(nt); }
+
+// Shared memory: resident Wh columns [64][P], Wp rows [NP][H/C], the
+// cluster's partial hp columns pushed to this CTA [C][MAX_B][NP/C] (fp32),
+// and the staged operand, whose space the gate plane [MAX_B][64] reuses.
+__host__ __device__ constexpr size_t k5_smem(int H, int P, int C, int kc) {
+  return (size_t)K5_NCOLS * (P + PAD) * 2 + (size_t)k6_np(H, P, C) * (H / C + PAD) * 2 +
+         (size_t)MAX_B * k6_np(H, P, C) * 4 +
+         cmax(cmax((size_t)MAX_B * ((P < kc ? P : kc) + PAD) * 2,
+                   (size_t)MAX_B * ((H / C < kc ? H / C : kc) + PAD) * 2),
+              (size_t)MAX_B * (K5_NCOLS + PAD) * 4);
 }
 
-static int launch_coop(const void* fn, int H, size_t smem, void** args, void* stream) {
-  if (H < 16 || H % 16 != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem)) !=
-      cudaSuccess)
-    return (int)e;
-  const int grid = H / UNITS;
-  if (per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+// This warp's MT x 2 tiles (m-tiles m0.., n-tiles nt0, nt0 + 1) of the
+// staged rows times Ws^T over all k16 columns of src, staged in passes of kc
+// columns by the whole CTA; s[2i + n] holds tile (i, n), its chains added in
+// order. Ends with a barrier: Ds is free again.
+template <int MT>
+__device__ __forceinline__ void k5_tiles(float (&s)[MT * 2][4], __nv_bfloat16* Ds, int ldd,
+                                         const __nv_bfloat16* src, int lds, int nb, int k16,
+                                         int kc, const __nv_bfloat16* Ws, int ldw, int nt0,
+                                         int m0, int g, int tg) {
+  constexpr int KS = MT * 2 >= 4 ? 1 : 4 / (MT * 2);
+  float acc[MT * 2 * KS][4];
+#pragma unroll
+  for (int i = 0; i < MT * 2 * KS; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int c0 = 0; c0 < k16; c0 += kc) {
+    const int w16 = min(kc, k16 - c0);
+    staged_pass<MT, 2, KS>(acc, Ds, ldd, src + c0, lds, nb, w16, w16, Ws + c0, ldw, nt0, 0, 1,
+                           g, tg, m0);
+    __syncthreads();  // Ds is rewritten by the next pass (or its space by a plane)
+  }
+#pragma unroll
+  for (int t = 0; t < MT * 2; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[t][e] = acc[t * KS][e];
+#pragma unroll
+      for (int j = 1; j < KS; ++j) s[t][e] += acc[t * KS + j][e];
+    }
+  }
 }
+
+// Phase 2's product over this CTA's K-slice, each tile's columns pushed into
+// the shared memory of the CTA that owns them (recv[rank][row][column]).
+template <int MT>
+__device__ __forceinline__ void k5_proj_push(float* recv, __nv_bfloat16* Ds, int ldd,
+                                             const __nv_bfloat16* src, int lds, int nb, int k16,
+                                             int kc, const __nv_bfloat16* Wr, int ldr, int NP,
+                                             int NPC, int r, int warp, int g, int tg,
+                                             cg::cluster_group& cluster) {
+  const int ng = NP / 16, mg = 4 / MT;
+  const int nt0 = (warp % ng) * 2, m0 = ((warp / ng) % mg) * MT;
+  float s[MT * 2][4];
+  k5_tiles<MT>(s, Ds, ldd, src, lds, nb, k16, kc, Wr, ldr, nt0, m0, g, tg);
+  if (warp >= ng * mg) return;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = (nt0 + n) * 8 + tg * 2, q = col / NPC;
+      float* d = cluster.map_shared_rank(recv, q) +
+                 ((size_t)r * MAX_B + (m0 + i) * 16 + g) * NPC + col - q * NPC;
+      *reinterpret_cast<float2*>(d) = make_float2(s[i * 2 + n][0], s[i * 2 + n][1]);
+      *reinterpret_cast<float2*>(d + 8 * NPC) = make_float2(s[i * 2 + n][2], s[i * 2 + n][3]);
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+lstmp_fwd_kernel(const float* __restrict__ xp,            // [T, ldb, 4H] (rows offset)
+                 const __nv_bfloat16* __restrict__ wh,    // [P, 4H]
+                 const __nv_bfloat16* __restrict__ wp,    // [H, P]
+                 const float* __restrict__ mask,          // [T, ldb]
+                 float* __restrict__ ys,                  // [T, ldb, P] hp
+                 float* __restrict__ cs,                  // [T, ldb, H]
+                 __nv_bfloat16* __restrict__ gates,       // [T, ldb, 4H] activated i,f,g,o
+                 __nv_bfloat16* hfull,                    // [T, ldb, H]: saved and exchanged
+                 __nv_bfloat16* hpbuf,                    // [nb, P] exchange of bf16(hp)
+                 int T, int nb, int ldb, int H, int P, int kc) {
+  static_assert(MAX_B * K3_UNITS / 4 == THREADS, "one (row, four units) per thread");
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H4 = 4 * H, KS = H / C, NP = k6_np(H, P, C), NPC = NP / C;
+  const int kc1 = min(P, kc), kc2 = min(KS, kc);
+  const int ldw = P + PAD, ldr = KS + PAD, ldp = K5_NCOLS + PAD;
+  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][ldw]
+  __nv_bfloat16* Wr = Ws + K5_NCOLS * ldw;                            // [NP][ldr]
+  float* recv = reinterpret_cast<float*>(Wr + NP * ldr);              // [C][MAX_B][NPC]
+  __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(recv + MAX_B * NP);  // staged operand
+  float* Pl = reinterpret_cast<float*>(Ds);  // the gate plane [MAX_B][ldp], after phase 1
+  const int r = (int)cluster.block_rank();
+  const int p0 = (blockIdx.x / C) * NP, j0 = r * KS, u0 = blockIdx.x * K3_UNITS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const bool proj = p0 < P;  // the same for the whole cluster
+
+  // resident: Ws[n][k] = Wh[k][gate(n) * H + u0 + unit(n)] (gates = hp . Wh);
+  // Wr[n][k] = Wp[j0 + k][p0 + n] (hp = h_full . Wp over this CTA's K-slice)
+  for (int idx = tid; idx < K5_NCOLS * P; idx += THREADS) {
+    const int k = idx / K5_NCOLS, n = idx % K5_NCOLS;
+    Ws[n * ldw + k] = wh[(size_t)k * H4 + (n / K3_UNITS) * H + u0 + n % K3_UNITS];
+  }
+  for (int idx = tid; idx < NP * KS; idx += THREADS) {
+    const int k = idx / NP, n = idx % NP;
+    Wr[n * ldr + k] = p0 + n < P ? wp[(size_t)(j0 + k) * P + p0 + n] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+
+  // phase-2 outputs of this thread: pairs of columns (row pb[i], columns
+  // p0 + pc[i], + 1) of the CTA's NPC columns of the cluster's NP
+  int pb[2], pc[2];
+  bool own[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = tid + i * THREADS;
+    pb[i] = p / (NPC / 2);
+    pc[i] = r * NPC + 2 * (p % (NPC / 2));
+    own[i] = proj && p < MAX_B * NPC / 2 && pb[i] < nb && p0 + pc[i] < P;
+  }
+  float2 hp_r[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};  // the masked carry
+  // phase-1 outputs: row b, units col .. col + 3
+  const int b = tid >> 2, col = u0 + 4 * (tid & 3);
+  const bool live = b < nb;
+  float c_r[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int t = 0; t < T; ++t) {
+    // this step's per-frame inputs, in flight during the product
+    float4 x_t[4];
+    float m_t = 0.f, m2[2] = {0.f, 0.f};
+    if (live) {
+      const float* xpt = xp + ((size_t)t * ldb + b) * H4 + col;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x_t[q] = *reinterpret_cast<const float4*>(xpt + q * H);
+      m_t = mask[(size_t)t * ldb + b];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (own[i]) m2[i] = mask[(size_t)t * ldb + pb[i]];
+
+    // 1. the CTA's gates: xp_t + bf16(hp_{t-1}) . Wh (hp = 0 at t = 0); warp w
+    //    takes n-tiles 2(w % 4), + 1 of m-tiles 2(w / 4), + 1
+    float4 rec[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) rec[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t > 0) {
+      const int nt0 = (warp % 4) * 2, m0 = (warp / 4) * 2;
+      float sg[4][4];
+      k5_tiles<2>(sg, Ds, kc1 + PAD, hpbuf, P, nb, P, kc1, Ws, ldw, nt0, m0, g, tg);
+      // the gate plane, read back by the threads of the gate math
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float* p0p = Pl + ((m0 + i) * 16 + g) * ldp + (nt0 + n) * 8 + tg * 2;
+          *reinterpret_cast<float2*>(p0p) = make_float2(sg[i * 2 + n][0], sg[i * 2 + n][1]);
+          *reinterpret_cast<float2*>(p0p + 8 * ldp) =
+              make_float2(sg[i * 2 + n][2], sg[i * 2 + n][3]);
+        }
+      }
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          rec[q] = *reinterpret_cast<const float4*>(Pl + b * ldp + q * K3_UNITS + 4 * (tid & 3));
+      }
+    }
+    if (live) {
+      const float m = m_t;
+      const float xs[4][4] = {{x_t[0].x, x_t[0].y, x_t[0].z, x_t[0].w},
+                              {x_t[1].x, x_t[1].y, x_t[1].z, x_t[1].w},
+                              {x_t[2].x, x_t[2].y, x_t[2].z, x_t[2].w},
+                              {x_t[3].x, x_t[3].y, x_t[3].z, x_t[3].w}};
+      const float rs[4][4] = {{rec[0].x, rec[0].y, rec[0].z, rec[0].w},
+                              {rec[1].x, rec[1].y, rec[1].z, rec[1].w},
+                              {rec[2].x, rec[2].y, rec[2].z, rec[2].w},
+                              {rec[3].x, rec[3].y, rec[3].z, rec[3].w}};
+      float act[4][4], hf[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ig = sigmoid_(xs[0][e] + rs[0][e]), fg = sigmoid_(xs[1][e] + rs[1][e]);
+        const float gg = tanhf(xs[2][e] + rs[2][e]), og = sigmoid_(xs[3][e] + rs[3][e]);
+        const float cn = fg * c_r[e] + ig * gg;
+        hf[e] = og * tanhf(cn);
+        c_r[e] = m * cn + (1.f - m) * c_r[e];
+        act[0][e] = ig;
+        act[1][e] = fg;
+        act[2][e] = gg;
+        act[3][e] = og;
+      }
+      const size_t o = ((size_t)t * ldb + b) * H + col;
+      *reinterpret_cast<float4*>(cs + o) = make_float4(c_r[0], c_r[1], c_r[2], c_r[3]);
+      *reinterpret_cast<uint2*>(hfull + o) =
+          make_uint2(pack_bf16x2(hf[0], hf[1]), pack_bf16x2(hf[2], hf[3]));
+      __nv_bfloat16* gt = gates + ((size_t)t * ldb + b) * H4 + col;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<uint2*>(gt + q * H) =
+            make_uint2(pack_bf16x2(act[q][0], act[q][1]), pack_bf16x2(act[q][2], act[q][3]));
+    }
+    grid.sync();
+
+    // 2. the cluster's hp columns: bf16(h_full_t) . Wp over this CTA's K-slice,
+    //    pushed to their owners and summed there in rank order; then the
+    //    masked carry of step t
+    if (proj) {
+      const __nv_bfloat16* hsrc = hfull + (size_t)t * ldb * H + j0;
+      switch (k5_mt(NP / 8)) {
+        case 1:
+          k5_proj_push<1>(recv, Ds, kc2 + PAD, hsrc, H, nb, KS, kc2, Wr, ldr, NP, NPC, r, warp, g,
+                          tg, cluster);
+          break;
+        case 2:
+          k5_proj_push<2>(recv, Ds, kc2 + PAD, hsrc, H, nb, KS, kc2, Wr, ldr, NP, NPC, r, warp, g,
+                          tg, cluster);
+          break;
+        default:
+          k5_proj_push<4>(recv, Ds, kc2 + PAD, hsrc, H, nb, KS, kc2, Wr, ldr, NP, NPC, r, warp, g,
+                          tg, cluster);
+      }
+      cluster.sync();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (own[i]) {
+          const float* rv = recv + (size_t)pb[i] * NPC + pc[i] - r * NPC;
+          float2 sp = make_float2(0.f, 0.f);
+#pragma unroll
+          for (int q = 0; q < C; ++q) {
+            const float2 v = *reinterpret_cast<const float2*>(rv + (size_t)q * MAX_B * NPC);
+            sp.x += v.x;
+            sp.y += v.y;
+          }
+          const float m = m2[i];
+          hp_r[i] = make_float2(m * sp.x + (1.f - m) * hp_r[i].x, m * sp.y + (1.f - m) * hp_r[i].y);
+          const size_t o = ((size_t)t * ldb + pb[i]) * P + p0 + pc[i];
+          *reinterpret_cast<float2*>(ys + o) = hp_r[i];
+          *reinterpret_cast<__nv_bfloat162*>(hpbuf + (size_t)pb[i] * P + p0 + pc[i]) =
+              __floats2bfloat162_rn(hp_r[i].x, hp_r[i].y);
+        }
+      }
+    }
+    if (t + 1 < T) grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// C interface. Each returns a cudaError_t code: 0 on a clean launch.
+// ---------------------------------------------------------------------------
 
 // Cluster launches (K2, K3). The cooperative attribute makes grid.sync()
 // legal and makes the launch fail, rather than hang, for a grid whose
@@ -1250,19 +1238,31 @@ static const void* k6_fn(int c) {
   }
 }
 
-// K6's cluster size and pass width at (H, P): the largest of 8, 4, 2, 1 that
-// divides the H/16 CTAs, whose shared memory fits with passes of K6_KC
-// columns (or else K6_KC/2) and whose clusters fit at once; cluster size 0
-// if none does. Cached per (H, P).
-static int k6_config(int H, int P, int* csize, int* kc) {
-  static int cache[1024 / 16 + 1][1024 / 16 + 1][2];  // {0, 0}: not asked yet
-  int* c = cache[H / 16][P / 16];
+static const void* k5_fn(int c) {
+  switch (c) {
+    case 8: return (const void*)lstmp_fwd_kernel<8>;
+    case 4: return (const void*)lstmp_fwd_kernel<4>;
+    case 2: return (const void*)lstmp_fwd_kernel<2>;
+    default: return (const void*)lstmp_fwd_kernel<1>;
+  }
+}
+
+// K5's (which = 5) or K6's (which = 6) cluster size and pass width at
+// (H, P): the largest of 8, 4, 2, 1 that divides the H/16 CTAs, whose
+// shared memory fits with passes of K6_KC columns (or else K6_KC/2) and
+// whose clusters fit at once; cluster size 0 if none does. Cached per
+// (kernel, H, P).
+static int lstmp_config(int which, int H, int P, int* csize, int* kc) {
+  static int cache[2][1024 / 16 + 1][1024 / 16 + 1][2];  // {0, 0}: not asked yet
+  int* c = cache[which == 5][H / 16][P / 16];
   if (!c[1]) {
     int pick = -1, pick_kc = K6_KC;
     for (int cs = 8; cs >= 1 && pick < 0; cs /= 2) {
       for (int w = K6_KC; w >= K6_KC / 2 && pick < 0; w /= 2) {
         bool fits = false;
-        const int e = clusters_fit(k6_fn(cs), H / K3_UNITS, cs, k6_smem(H, P, cs, w), &fits);
+        const int e = which == 5
+                          ? clusters_fit(k5_fn(cs), H / K3_UNITS, cs, k5_smem(H, P, cs, w), &fits)
+                          : clusters_fit(k6_fn(cs), H / K3_UNITS, cs, k6_smem(H, P, cs, w), &fits);
         if (e != 0) return e;
         if (fits) {
           pick = cs;
@@ -1340,7 +1340,11 @@ static bool proj_shape_ok(int nb, int T, int H, int P) {
 extern "C" int pk2_lstmp_fwd(const void* xp, const void* wh, const void* wp, const void* mask,
                              void* ys, void* cs, void* gates, void* hfull, void* hpbuf,
                              int T, int nb, int ldb, int H, int P, void* stream) {
-  if (!proj_shape_ok(nb, T, H, P)) return (int)cudaErrorInvalidValue;
+  if (!hidden_ok(H) || !proj_shape_ok(nb, T, H, P)) return (int)cudaErrorInvalidValue;
+  int c = 0, kc = 0;
+  const int e = lstmp_config(5, H, P, &c, &kc);
+  if (e != 0) return e;
+  if (c == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const float* a_xp = (const float*)xp;
   const __nv_bfloat16* a_wh = (const __nv_bfloat16*)wh;
   const __nv_bfloat16* a_wp = (const __nv_bfloat16*)wp;
@@ -1351,8 +1355,16 @@ extern "C" int pk2_lstmp_fwd(const void* xp, const void* wh, const void* wp, con
   __nv_bfloat16* a_hfull = (__nv_bfloat16*)hfull;
   __nv_bfloat16* a_hpbuf = (__nv_bfloat16*)hpbuf;
   void* args[] = {&a_xp, &a_wh, &a_wp, &a_mask, &a_ys, &a_cs, &a_gates, &a_hfull, &a_hpbuf,
-                  &T, &nb, &ldb, &H, &P};
-  return launch_coop((const void*)lstmp_fwd_kernel, H, lstmp_fwd_smem(H, P), args, stream);
+                  &T, &nb, &ldb, &H, &P, &kc};
+  return launch_cluster(k5_fn(c), H / K3_UNITS, c, k5_smem(H, P, c, kc), args, stream);
+}
+
+// K5's cluster size at (H, P) (0: cannot launch).
+extern "C" int pk2_lstmp_fwd_cluster(int H, int P, int* csize) {
+  *csize = 0;
+  if (!hidden_ok(H) || !proj_shape_ok(1, 1, H, P)) return (int)cudaErrorInvalidValue;
+  int kc = 0;
+  return lstmp_config(5, H, P, csize, &kc);
 }
 
 // K6's cluster size at (H, P) (0: cannot launch).
@@ -1360,7 +1372,7 @@ extern "C" int pk2_lstmp_bwd_cluster(int H, int P, int* csize) {
   *csize = 0;
   if (!hidden_ok(H) || !proj_shape_ok(1, 1, H, P)) return (int)cudaErrorInvalidValue;
   int kc = 0;
-  return k6_config(H, P, csize, &kc);
+  return lstmp_config(6, H, P, csize, &kc);
 }
 
 extern "C" int pk2_lstmp_bwd(const void* dys, const void* gates, const void* cs,
@@ -1369,7 +1381,7 @@ extern "C" int pk2_lstmp_bwd(const void* dys, const void* gates, const void* cs,
                              int H, int P, void* stream) {
   if (!hidden_ok(H) || !proj_shape_ok(nb, T, H, P)) return (int)cudaErrorInvalidValue;
   int c = 0, kc = 0;
-  const int e = k6_config(H, P, &c, &kc);
+  const int e = lstmp_config(6, H, P, &c, &kc);
   if (e != 0) return e;
   if (c == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const float* a_dys = (const float*)dys;

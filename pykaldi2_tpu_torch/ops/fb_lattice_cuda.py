@@ -179,6 +179,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ci
         lib.pk2_latfb_max_slots.argtypes = [ci]
         lib.pk2_latfb_max_slots.restype = ci
+        lib.pk2_latfb_smbr_fwd_ring.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.pk2_latfb_smbr_fwd_ring.restype = ci
         lib._pk2_typed = True
     return lib
 
@@ -186,6 +188,17 @@ def _lib() -> ctypes.CDLL:
 def max_slots(n_bufs: int) -> int:
     """Largest K the kernels take: n_bufs = 2 for K7/K8, 4 for K9/K10."""
     return _lib().pk2_latfb_max_slots(n_bufs)
+
+
+def smbr_fwd_ring(a: int, k: int) -> Tuple[int, int]:
+    """K9's band ring at A arcs and K slots a frame: (stages, arcs a stage);
+    (0, 0) when A is not a multiple of 4 or the carries leave no room for
+    two stages, and the band is read from global memory (as it is when a
+    band row is not 16-byte aligned)."""
+    stages, chunk = ctypes.c_int(), ctypes.c_int()
+    D.check_launch(_lib().pk2_latfb_smbr_fwd_ring(a, k, ctypes.byref(stages),
+                                                  ctypes.byref(chunk)), "K9 ring size")
+    return stages.value, chunk.value
 
 
 def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple, dev: torch.device):

@@ -19,10 +19,11 @@ results outside the kernels (lstm_pallas.py:580-593).
 On the H100 the kernels are bound by the per-step latency of exchanging the
 new state across the grid, not by bytes or flops; see the note at the top of
 ``csrc/lstm.cu`` for the persistent designs (Wh slices resident in shared
-memory, mma.sync, one grid barrier per step, two for K5/K6; K2, K3 and K6
-split each step's product over a thread-block cluster and sum the partials
+memory, mma.sync, one grid barrier per step, two for K5/K6; every kernel
+splits each step's larger product over a thread-block cluster and sums the partials
 in distributed shared memory). ``lstm_clusters`` reports the cluster sizes
-K2/K3 launch with, ``lstmp_bwd_cluster`` K6's.
+K2/K3 launch with, ``lstmp_fwd_cluster`` and ``lstmp_bwd_cluster`` K5's and
+K6's.
 
 Streams stay fp32 at every size: the JAX package's bf16 stream modes
 (``_stream_dtype``, ``_stream_dtype_proj``) and its batch tiling
@@ -243,6 +244,8 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_lstmp_bwd.restype = ci
         lib.pk2_lstmp_bwd_cluster.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.pk2_lstmp_bwd_cluster.restype = ci
+        lib.pk2_lstmp_fwd_cluster.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.pk2_lstmp_fwd_cluster.restype = ci
         lib._pk2_typed = True
     return lib
 
@@ -279,15 +282,24 @@ def lstm_clusters(h: int, dev: torch.device) -> Tuple[int, int]:
     return k2.value, k3.value
 
 
+def _lstmp_cluster(fn, what: str, h: int, p: int, dev: torch.device) -> int:
+    _check_proj(h, p)
+    c = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        D.check_launch(fn(h, p, ctypes.byref(c)), what)
+    return c.value
+
+
+def lstmp_fwd_cluster(h: int, p: int, dev: torch.device) -> int:
+    """The thread-block cluster size K5 launches with at hidden size ``h``
+    and projection ``p`` on ``dev`` (0: no cluster size fits)."""
+    return _lstmp_cluster(_lib().pk2_lstmp_fwd_cluster, "K5 cluster query", h, p, dev)
+
+
 def lstmp_bwd_cluster(h: int, p: int, dev: torch.device) -> int:
     """The thread-block cluster size K6 launches with at hidden size ``h``
     and projection ``p`` on ``dev`` (0: no cluster size fits)."""
-    _check_proj(h, p)
-    lib = _lib()
-    c = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        D.check_launch(lib.pk2_lstmp_bwd_cluster(h, p, ctypes.byref(c)), "K6 cluster query")
-    return c.value
+    return _lstmp_cluster(_lib().pk2_lstmp_bwd_cluster, "K6 cluster query", h, p, dev)
 
 
 def lstm_fwd(xp: Tensor, wh_b: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -364,7 +376,7 @@ lstm_bwd.launches = 0
 
 def _check_proj(h: int, p: int):
     # the LSTM kernels' limit on H, and P columns in 16-wide k-steps; P <= H
-    # keeps the P/8 projection column groups within the H/8 CTAs, and the
+    # keeps the clusters' NP-column blocks of P within the H/16 CTAs, and the
     # shared memory of the weight slices and the staged state within a block's
     # 227 KB up to H = P = 1024
     _check_hidden(h)

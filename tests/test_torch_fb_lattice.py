@@ -2,7 +2,10 @@
 
 Two levels, on the cases of tests/test_fb_lattice_pallas.py (random banded
 lattices with NEG_INF padding arcs, a slot count off the lane multiple, K≠A,
-and a band wide enough that the Pallas kernels chunk it):
+and a band wide enough that the Pallas kernels chunk it) and one more,
+``packed_padding``: padding arcs at src = dst = 0 as ``pack_time_sync``
+writes them, inactive frames, and an active frame of padding arcs only, whose
+arcs each add exp(0) = 1 to slot 0 (the paths the CUDA K9 skips around):
 
   * the plain versions of K7-K10 (ops/fb_lattice_cuda.py) against the Pallas
     kernels ``make_logz_fwd`` / ``make_occupancies_bwd`` / ``make_smbr_fwd`` /
@@ -58,9 +61,11 @@ def _jax_scan(monkeypatch):
     monkeypatch.setenv("PK2_LATFB_MATVEC", "0")
 
 
-def _lattice(seed, k=128, a=128, live=24, pad_from=None, uneven=False):
+def _lattice(seed, k=128, a=128, live=24, pad_from=None, uneven=False, packed=False):
     """Random banded lattice (numpy): forward-connected live slots, padding
-    arcs from ``pad_from`` on, frame 0 leaving the single start slot."""
+    arcs from ``pad_from`` on, frame 0 leaving the single start slot. With
+    ``packed``, padding arcs join slot 0 to slot 0, as ``pack_time_sync``
+    writes them, and utterance 0's frame 1 (always active) is all padding."""
     rng = np.random.RandomState(seed)
     src = rng.randint(0, live, (B, T, a)).astype(np.int32)
     src[:, 0, :] = 0
@@ -68,6 +73,10 @@ def _lattice(seed, k=128, a=128, live=24, pad_from=None, uneven=False):
     w = (rng.randn(B, T, a) * 0.3).astype(np.float32)
     if pad_from is not None:
         w[:, :, pad_from:] = NEG_INF
+    if packed:
+        w[0, 1] = NEG_INF
+        src[w == NEG_INF] = 0
+        dst[w == NEG_INF] = 0
     final = np.full((B, k), NEG_INF, np.float32)
     final[:, :live] = 0.0 if uneven else (rng.randn(B, live) * 0.2).astype(np.float32)
     pdf = rng.randint(0, P, (B, T, a)).astype(np.int32)
@@ -80,6 +89,8 @@ CASES = {
     "padded_slots": dict(seed=7, k=200, pad_from=96),
     "uneven_k_a": dict(seed=5, k=256, live=30, uneven=True),
     "chunked_band": dict(seed=9, a=2048, pad_from=1536, uneven=True),
+    # padding as pack_time_sync writes it, and an active frame of padding only
+    "packed_padding": dict(seed=3, pad_from=80, packed=True),
 }
 
 

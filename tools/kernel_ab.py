@@ -1,21 +1,25 @@
-"""Time the port's K6 and K11 against an earlier version of their sources, in one process.
+"""Time the port's K5, K6, K9 and K11 against an earlier version of their sources, in one process.
 
     git archive <commit> pykaldi2_tpu_torch/csrc | tar -x -C build/parent
-    python3 tools/kernel_ab.py --parent build/parent/pykaldi2_tpu_torch/csrc [--what k6,k11]
+    python3 tools/kernel_ab.py --parent build/parent/pykaldi2_tpu_torch/csrc [--what k5,k6,k9,k11]
 
-Builds the earlier ``lstm.cu`` and ``blockfb.cu`` with the port's nvcc flags
-into ``build/ab/``, and times, on the same inputs and card, the earlier and
-the current kernel in turns (earlier, current, current, earlier; CUDA-event
-means) at the main path's shapes: K6 at B=64, T=80, H=1024, P=512 and K11 on
-chip_smoke's 96k-state chain graph at R=16 and 32 in both orientations. The
-earlier K6 takes the same C arguments as the current one; the earlier K11
-takes the CSR row pointer where the current one takes segment descriptors
+Builds the earlier ``lstm.cu``, ``latfb.cu`` and ``blockfb.cu`` with the
+port's nvcc flags into ``build/ab/``, and times, on the same inputs and card,
+the earlier and the current kernel in turns (earlier, current, current,
+earlier; CUDA-event means) at the main path's shapes: K5 and K6 at B=64,
+T=80, H=1024, P=512, K9 on chip_smoke's ``padded_lattice`` (B=32, T=448,
+K=256, A=512) and probe lattice (K=A=256), K11 on chip_smoke's 96k-state
+chain graph at R=16 and 32 in both orientations. The earlier K5 and K9 take
+the same C arguments as the current ones, and so does the earlier K6;
+the earlier K11 takes the CSR row pointer where the current one takes
+segment descriptors
 (the first K11, as in commit 7ff1e87, told apart by its source naming no
 ``segdesc``); both K11s are launched
 through ctypes directly, into buffers allocated once, since the wrapper's
 per-call host work takes about as long as the kernel. Each earlier result is
-held against the current one (K6 within chip_smoke's ``TOL["lstmp_bwd"]``, K11
-within ``BLOCK_TOL`` of the row max). Needs a CUDA card and nvcc.
+held against the current one (K5 and K6 within chip_smoke's ``TOL``, K9
+within ``LAT_TOL``, K11 within ``BLOCK_TOL`` of the row max). Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -93,6 +97,101 @@ def k6_ab(parent_lib) -> None:
     turns(f"K6 B={b} T={t} H={h} P={p}", lambda: run(parent_lib), lambda: run(current_lib), 20)
 
 
+def k5_ab(parent_lib) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    parent_lib.pk2_lstm_max_batch.restype = ci
+    parent_lib.pk2_lstmp_fwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+    parent_lib.pk2_lstmp_fwd.restype = ci
+    parent_lib._pk2_typed = True
+    dev = torch.device("cuda", 0)
+    t, b, h, p = C.T, C.B, C.H, C.PROJ
+    rng = np.random.RandomState(2)
+    xp = torch.tensor((rng.randn(t, b, 4 * h) * 0.5).astype(np.float32), device=dev)
+    wh = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (p, 4 * h)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    wp = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (h, p)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    mask = torch.ones(t, b, device=dev)
+    mask[50:, 3] = 0.0
+    current_lib = L._lib()
+
+    def run(lib):
+        D._LIBS["lstm"] = lib
+        out = L.lstm_proj_fwd(xp, wh, wp, mask)
+        D._LIBS["lstm"] = current_lib
+        return out
+
+    old, new = run(parent_lib), run(current_lib)
+    torch.cuda.synchronize()
+    for name, i, tol in (("ys", 0, "lstmp_fwd"), ("cs", 1, "lstmp_fwd"),
+                         ("gates", 2, "lstmp_fwd_bf16"), ("hfull", 3, "lstmp_fwd_bf16")):
+        err = float((old[i].float() - new[i].float()).abs().max())
+        print(f"K5 {name} earlier vs current: max abs difference {err:.3e} (tolerance "
+              f"{C.TOL[tol]:g})", flush=True)
+        if err > C.TOL[tol]:
+            raise SystemExit("K5: the earlier and the current kernel disagree")
+    turns(f"K5 B={b} T={t} H={h} P={p}", lambda: run(parent_lib), lambda: run(current_lib), 20)
+
+
+def k9_ab(parent_lib) -> None:
+    import torch
+
+    import chip_smoke as C
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    parent_lib.pk2_latfb_smbr_fwd.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+    parent_lib.pk2_latfb_smbr_fwd.restype = ci
+    parent_lib.pk2_latfb_max_slots.argtypes = [ci]
+    parent_lib.pk2_latfb_max_slots.restype = ci
+    parent_lib._pk2_typed = True
+    dev = torch.device("cuda", 0)
+    current_lib = KC._lib()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, t, k = C.SE_B, C.SE_T, C.SE_PROBE_KA
+
+    def ints(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    probe = FL.TimeSyncLattice(
+        src=ints(k, (b, t, k)), dst=ints(k, (b, t, k)), pdf=ints(C.SENONES, (b, t, k)),
+        weight=torch.randn(b, t, k, generator=gen, device=dev) * 0.1,
+        final=torch.zeros(b, k, device=dev))
+    bands = {"padded_lattice": C.padded_lattice(dev),
+             "probe": (torch.randn(b, t, C.SENONES, generator=gen, device=dev) * 0.1, probe,
+                       torch.full((b,), t, dtype=torch.int32, device=dev),
+                       ints(C.SENONES, (b, t)))}
+    for label, (obs, lat, nf, ref) in bands.items():
+        band = FL._band(obs, lat)
+        active = FL._active_ts(t, nf)
+        arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
+
+        def run(lib):
+            D._LIBS["latfb"] = lib
+            out = KC.smbr_fwd(*band, active, arc_acc, lat.num_slots)
+            D._LIBS["latfb"] = current_lib
+            return out
+
+        old, new = run(parent_lib), run(current_lib)
+        torch.cuda.synchronize()
+        C.close_log(f"K9 {label} alphas earlier vs current", new[0], old[0])
+        C.close(f"K9 {label} aaccs earlier vs current", new[1], old[1], C.LAT_TOL["abs"],
+                C.LAT_TOL["rel"])
+        C.close(f"K9 {label} norms earlier vs current", new[2], old[2], C.LAT_TOL["log"],
+                C.LAT_TOL["log"])
+        turns(f"K9 {label} B={b} T={t} K={lat.num_slots} A={lat.src.shape[2]}",
+              lambda: run(parent_lib), lambda: run(current_lib), 10)
+
+
 def k11_ab(parent_lib, parent_takes_rowptr: bool) -> None:
     import torch
 
@@ -150,7 +249,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="csrc directory of the earlier version")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
-    ap.add_argument("--what", default="k6,k11")
+    ap.add_argument("--what", default="k5,k6,k9,k11")
     args = ap.parse_args(argv)
     import torch
 
@@ -162,10 +261,17 @@ def main(argv=None) -> int:
                          capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     D.resolve_device("cuda")
-    D.build_all(("lstm", "blockfb"))
-    if "k6" in args.what.split(","):
-        k6_ab(build(args.parent, "lstm", args.out))
-    if "k11" in args.what.split(","):
+    D.build_all(("lstm", "blockfb", "latfb"))
+    what = args.what.split(",")
+    if "k5" in what or "k6" in what:
+        lstm_parent = build(args.parent, "lstm", args.out)
+        if "k5" in what:
+            k5_ab(lstm_parent)
+        if "k6" in what:
+            k6_ab(lstm_parent)
+    if "k9" in what:
+        k9_ab(build(args.parent, "latfb", args.out))
+    if "k11" in what:
         with open(os.path.join(args.parent, "blockfb.cu")) as f:
             takes_rowptr = "segdesc" not in f.read()
         k11_ab(build(args.parent, "blockfb", args.out), takes_rowptr)

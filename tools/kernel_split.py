@@ -1,7 +1,8 @@
 """Split a hand-written kernel's time into its parts with clock64() stamps.
 
-    python3 tools/kernel_split.py [--src DIR] [--what k6,k11] [--out build/split]
+    python3 tools/kernel_split.py [--src DIR] [--what k5,k6,k9,k11] [--out build/split]
     python3 tools/kernel_split.py --src <csrc of commit 7ff1e87> --what k6_first,k11_first
+    python3 tools/kernel_split.py --src <csrc of commit 7f9f2ed> --what k5_first,k9_first
 
 Copies ``lstm.cu`` and ``blockfb.cu`` from ``--src`` (default: the port's
 ``pykaldi2_tpu_torch/csrc``) into ``--out``, inserts stamps at fixed lines
@@ -17,6 +18,11 @@ with the line it could not find. The stamps cost a few hundred cycles a
 step, so read the buckets as shares, and the event time as the kernel's.
 
 Kernels and shapes:
+  k5   ``lstmp_fwd_kernel`` at B=64, T=80, H=1024, P=512 (one BLSTMP layer
+       direction), cycles a step per CTA;
+  k9   ``smbr_fwd_kernel`` on chip_smoke's ``padded_lattice`` (B=32, T=448,
+       K=256, A=512, ~74% of the band live arcs, padding at slot 0), cycles
+       a frame per CTA;
   k6   ``lstmp_bwd_kernel`` at B=64, T=80, H=1024, P=512 (one BLSTMP layer
        direction), buckets: phase-1 staging, phase-1 mma, partial stores
        and dhp epilogue, barrier 1, phase-2 staging, phase-2 mma and gate
@@ -70,6 +76,17 @@ extern "C" int pk2_split_take(unsigned long long* out) {
 # k6 and k11 are the current kernels; k6_first and k11_first their first
 # versions (128 CTAs staging all of dgates; a 2-stage ring and a binary
 # search), as in commit 7ff1e87's csrc: --src a copy of it
+# K9 as PR 2 wrote it (one CTA of 512 threads per utterance, six barriers a frame)
+K9_FIRST = [
+    ("float norm = 0.f;", "after", "PK2_T0;"),
+    ("lmax = fmaxf(lmax, alpha[src[off + a]] + w[off + a] + obs[off + a]);", "after",
+     "PK2_STAMP(0);"),
+    ("const float mx = fmaxf(block_max(lmax, red), kNegInf);", "after", "PK2_STAMP(1);"),
+    ("atomicAdd(&num[d], lin * acc_in);", "after+2", "PK2_STAMP(2);"),
+    ("const float m2 = slot_logs(sum, K, mx, red);", "after", "PK2_STAMP(3);"),
+    ("if (tid == 0) norms[row] = norm;", "after+1", "PK2_STAMP(4);"),
+]
+
 SPECS = {
     "k6": ("lstmp_bwd_kernel(const float* __restrict__ dys", [
         ("float dc_r[4] = {0.f, 0.f, 0.f, 0.f};", "after", "PK2_T0;"),
@@ -98,6 +115,33 @@ SPECS = {
         ("if (!last) return;", "before", "PK2_STAMP(7);"),
         ("if (tid == 0) *counter = 0;  // ready for the next call", "before", "PK2_STAMP(8);"),
     ]),
+    "k5": ("lstmp_fwd_kernel(const float* __restrict__ xp", [
+        ("float c_r[4] = {0.f, 0.f, 0.f, 0.f};", "after", "PK2_T0;"),
+        ("for (int t = 0; t < T; ++t) {", "after", "PK2_STAMP(7);"),
+        ("if (own[i]) m2[i] = mask[(size_t)t * ldb + pb[i]];", "after", "PK2_STAMP(0);"),
+        ("// the gate plane, read back by the threads of the gate math", "before",
+         "PK2_STAMP(1);"),
+        ("grid.sync();", "before", "PK2_STAMP(2);"),
+        ("grid.sync();", "after", "PK2_STAMP(3);"),
+        ("cluster.sync();", "before", "PK2_STAMP(4);"),
+        ("cluster.sync();", "after", "PK2_STAMP(5);"),
+        ("if (t + 1 < T) grid.sync();", "before", "PK2_STAMP(6);"),
+    ]),
+    "k9": ("__global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(", [
+        ("float act_next = active[b];", "after", "PK2_T0;"),
+        ("__syncthreads();  // B0: ... in every thread, and the last frame's carries are final",
+         "after", "PK2_STAMP(0);"),
+        ("continue;", "before", "PK2_STAMP(9);"),
+        ("post_warp_max(lmax, red);", "after", "PK2_STAMP(1);"),
+        ("__syncthreads();  // B1: the posts are in; no thread reads this frame's stage again",
+         "after", "PK2_STAMP(2);"),
+        ("const float mx = fmaxf(read_block_max(red), kNegInf);", "after", "PK2_STAMP(3);"),
+        ("__syncthreads();  // B2: every arc is in its slot", "before", "PK2_STAMP(4);"),
+        ("__syncthreads();  // B2: every arc is in its slot", "after", "PK2_STAMP(5);"),
+        ("post_warp_max(lm, red);", "after", "PK2_STAMP(6);"),
+        ("__syncthreads();  // B3: the slots' maxima are in", "after", "PK2_STAMP(7);"),
+        ("if (tid == 0) norms[row] = norm;", "after", "PK2_STAMP(8);"),
+    ]),
     "k6_first": ("lstmp_bwd_kernel(const float* __restrict__ dys", [
         ("for (int i = 0; i < MAX_PAIRS; ++i) dc_r[i] = 0.f;", "after", "PK2_T0;"),
         ("stage_owned(Xs, ldd, dgbuf + kc, H4, role, nb, kw);", "after+1", "PK2_STAMP(0);"),
@@ -109,6 +153,26 @@ SPECS = {
         ("grid.sync();", "before", "PK2_STAMP(5);"),
         ("grid.sync();", "after", "PK2_STAMP(6);"),
     ]),
+    "k5_first": ("lstmp_fwd_kernel(const float* __restrict__ xp", [
+        ("for (int i = 0; i < MAX_HP; ++i) hp_r[i] = 0.f;", "after", "PK2_T0;"),
+        ("stage_rows(Xs, ldp, hpbuf, P, mtiles * 16, nb, P);", "after+1", "PK2_STAMP(0);"),
+        ("c0[8 * NCOL + 1] = acc[i][3];", "after+3", "PK2_STAMP(1);"),
+        ("grid.sync();", "before", "PK2_STAMP(2);"),
+        ("grid.sync();", "after", "PK2_STAMP(3);"),
+        ("stage_owned(Xs, ldh, hfull + (size_t)t * ldb * H, H, role, nb, H);", "after+1",
+         "PK2_STAMP(4);"),
+        ("grid.sync();", "before", "PK2_STAMP(5);"),
+        ("grid.sync();", "after", "PK2_STAMP(6);"),
+    ]),
+    "k9_first": ("__global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(", K9_FIRST),
+    # the same, with padding arcs (weight NEG_INF) kept out of the atomic
+    # pass: an experiment only (an active frame of padding arcs then differs)
+    "k9_first_nopad": ("__global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(",
+                       K9_FIRST[:3] + [
+        ("atomicAdd(&sum[d], lin);", "before", "if (w[off + a] > 0.5f * kNegInf) {"),
+        ("atomicAdd(&num[d], lin * acc_in);", "after", "}"),
+        ("__syncthreads();", "after", "PK2_STAMP(2);"),
+    ] + K9_FIRST[4:]),
     "k11_first": ("__global__ void __launch_bounds__(kThreads) block_matvec_kernel(", [
         ("__shared__ int last;", "after", "PK2_T0;"),
         ("cp_async_commit();", "after", "PK2_STAMP(0);"),
@@ -121,6 +185,20 @@ SPECS = {
     ]),
 }
 BUCKETS = {
+    "k5": ["per-frame loads issued", "phase-1 product (staging + mma)",
+           "gate plane + gate math + stores", "barrier 1",
+           "phase-2 product + DSMEM push", "cluster barrier", "local sum + hp epilogue",
+           "barrier 2"],
+    "k9": ["ring wait + barrier 0", "pass 1 (scores, warp max)", "barrier 1",
+           "block max", "pass 2 (atomics)", "barrier 2",
+           "slot pass (ratio, log, warp max)", "barrier 3", "blend + stores",
+           "inactive frame (carries out)"],
+    "k5_first": ["staging hp", "gate product", "gate math (xp loaded)", "barrier 1",
+                 "staging h_full", "projection + partial sums", "barrier 2"],
+    "k9_first": ["first pass (loads, scores)", "first block_max", "atomic pass",
+                 "ratios + slot_logs", "blend + stores"],
+    "k9_first_nopad": ["first pass (loads, scores)", "first block_max",
+                       "atomic pass, padding left out", "ratios + slot_logs", "blend + stores"],
     "k6": ["per-frame loads issued", "phase-1 product (staging + mma)", "phase-1 plane sum",
            "cluster barrier", "DSMEM pull + dhp epilogue", "barrier 1",
            "phase-2 product (staging + mma)", "phase-2 plane sum", "gate math", "barrier 2"],
@@ -157,7 +235,7 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
     """The kernel's library built from ``src_dir``, with the stamps or without."""
     from pykaldi2_tpu_torch import device as D
 
-    name = "lstm" if what.startswith("k6") else "blockfb"
+    name = {"k5": "lstm", "k6": "lstm", "k9": "latfb"}.get(what.split("_")[0], "blockfb")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(src_dir, f"{name}.cu")) as f:
         text = f.read()
@@ -172,10 +250,18 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
         raise SystemExit(f"nvcc failed for {cu}:\n{res.stdout}{res.stderr}")
     out = ctypes.CDLL(lib)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "lstm":  # the entry points the LSTMP backward's wrapper calls
+    if name == "lstm":  # the entry points the LSTMP wrappers call
         out.pk2_lstm_max_batch.restype = ci
+        out.pk2_lstmp_fwd.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        out.pk2_lstmp_fwd.restype = ci
         out.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         out.pk2_lstmp_bwd.restype = ci
+        out._pk2_typed = True
+    elif name == "latfb":  # the entry points K9's wrapper calls, in every version
+        out.pk2_latfb_smbr_fwd.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+        out.pk2_latfb_smbr_fwd.restype = ci
+        out.pk2_latfb_max_slots.argtypes = [ci]
+        out.pk2_latfb_max_slots.restype = ci
         out._pk2_typed = True
     else:  # the first and the current K11 take the same arguments but the 4th
         out.pk2_blockfb_matvec.argtypes = [vp] * 8 + [ci] * 4 + [vp]
@@ -207,6 +293,74 @@ def report(what: str, label: str, raw: list, calls: int, per: str, n_per: float,
               f"{cyc / cnt:.1f} cycles a stamp", flush=True)
     print(f"  {'total':26s} {total / calls / n_per:10.1f} cycles {per}", flush=True)
     return total
+
+
+def k5_ctas(what: str, h: int) -> int:
+    return h // 8 if what == "k5_first" else h // 16
+
+
+def run_k5(what: str, src: str, out: str, calls: int = 5):
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    dev = torch.device("cuda", 0)
+    t, b, h, p = C.T, C.B, C.H, C.PROJ
+    rng = np.random.RandomState(2)
+    xp = torch.tensor((rng.randn(t, b, 4 * h) * 0.5).astype(np.float32), device=dev)
+    wh = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (p, 4 * h)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    wp = torch.tensor(rng.uniform(-1 / 32, 1 / 32, (h, p)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    mask = torch.ones(t, b, device=dev)
+    fn = lambda: L.lstm_proj_fwd(xp, wh, wp, mask)  # noqa: E731
+    base = D._LIBS.get("lstm")
+    D._LIBS["lstm"] = build(src, out, what, stamped=False)
+    ms = C.timed(fn)
+    split = D._LIBS["lstm"] = build(src, out, what)
+    fn()
+    take(split)
+    for _ in range(calls):
+        fn()
+    raw = take(split)
+    D._LIBS["lstm"] = base
+    ctas = k5_ctas(what, h)
+    total = report(what, f"B={b} T={t} H={h} P={p}", raw, calls, "a step per CTA", ctas * t, ms)
+    print(f"  implied SM clock {total / calls / ctas / (ms * 1e-3) / 1e9:.3f} GHz "
+          f"(cycles per CTA over the event time)", flush=True)
+
+
+def run_k9(what: str, src: str, out: str, calls: int = 3):
+    import torch
+
+    import chip_smoke as C
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+
+    dev = torch.device("cuda", 0)
+    obs, lat, nf, ref = C.padded_lattice(dev)
+    b, t, _p = obs.shape
+    k, a = lat.num_slots, lat.src.shape[2]
+    band = FL._band(obs, lat)
+    active = FL._active_ts(t, nf)
+    arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
+    fn = lambda: KC.smbr_fwd(*band, active, arc_acc, k)  # noqa: E731
+    base = D._LIBS.get("latfb")
+    D._LIBS["latfb"] = build(src, out, what, stamped=False)
+    ms = C.timed(fn, n=10)
+    split = D._LIBS["latfb"] = build(src, out, what)
+    fn()
+    take(split)
+    for _ in range(calls):
+        fn()
+    raw = take(split)
+    D._LIBS["latfb"] = base
+    report(what, f"padded_lattice B={b} T={t} K={k} A={a}", raw, calls, "a frame per CTA",
+           b * t, ms)
 
 
 def run_k6(what: str, src: str, out: str, calls: int = 5):
@@ -291,7 +445,7 @@ def run_k11(what: str, src: str, out: str, calls: int = 20):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "pykaldi2_tpu_torch", "csrc"))
-    ap.add_argument("--what", default="k6,k11")
+    ap.add_argument("--what", default="k5,k6,k9,k11")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "split"))
     args = ap.parse_args(argv)
     import torch
@@ -305,7 +459,8 @@ def main(argv=None) -> int:
     print(f"card: {smi.stdout.strip()}", flush=True)
     D.build_all()
     for what in args.what.split(","):
-        (run_k6 if what.startswith("k6") else run_k11)(what, args.src, args.out)
+        run = {"k5": run_k5, "k6": run_k6, "k9": run_k9}.get(what.split("_")[0], run_k11)
+        run(what, args.src, args.out)
     return 0
 
 
