@@ -15,22 +15,23 @@
 // Design. Utterances are independent, so each CTA owns one utterance and
 // walks its T frames in a loop (in reverse for K8/K10): no grid barrier. The
 // [K] carries (alpha or beta, and the accuracy carry for K9/K10) and the
-// [K] segment-sum accumulators live in shared memory for all of T. In K7,
-// K8 and K10, per frame one pass over the A arcs computes the scores and their block
-// max; a second pass recomputes them (the band is re-read from L1/L2, so A
-// needs no shared memory), takes expf and adds each arc into its destination
-// slot (K7/K9) or source slot (K8/K10) with a shared-memory atomicAdd; per
-// arc outputs (gamma, contributions) go straight to global memory. Then one
+// [K] segment-sum accumulators live in shared memory for all of T. K7 is
+// still the first design: per frame one pass over the A arcs computes the
+// scores and their block max; a second pass recomputes them (the band is
+// re-read from L1/L2, so A needs no shared memory), takes expf and adds each
+// arc into its destination slot with a shared-memory atomicAdd. Then one
 // pass over the K slots takes the guarded log, the renormalising max m2 and
-// the `active` blend. The Pallas kernels' one-hot matmul gather/scatter was a
-// way around Mosaic and is not carried over.
+// the `active` blend. K8, K9 and K10 (below) stream the band through a
+// shared-memory ring instead and keep each arc's score in registers. The
+// Pallas kernels' one-hot matmul gather/scatter was a way around Mosaic and
+// is not carried over.
 //
 // Bound. Each kernel reads its band once and writes its outputs once, so it
 // is bound by bytes, but at B=32 only 32 of the 132 SMs hold a CTA and each
 // frame is a chain of dependent block reductions: the kernels are latency
-// bound per frame. K9 (below) takes that latency apart; K7, K8 and K10 are
-// still the first design. Splitting the band of one utterance over a
-// cluster of CTAs (DSMEM) is the next lever; not done here.
+// bound per frame. K8-K10 take that latency apart; K7 is still the first
+// design. Splitting the band of one utterance over a cluster of CTAs
+// (DSMEM) is the next lever; not done here.
 //
 // Numerics follow the reference exactly: NEG_INF = -1e30 with the
 // max(., NEG_INF) clamp, exp(min(log_gamma, 0)), the `denom > 0` guards,
@@ -115,84 +116,44 @@ __global__ void __launch_bounds__(kThreads) logz_fwd_kernel(
   }
 }
 
-// K8
-__global__ void __launch_bounds__(kThreads) occupancies_bwd_kernel(
-    const float* __restrict__ obs, const int* __restrict__ src, const int* __restrict__ dst,
-    const float* __restrict__ w, const float* __restrict__ active,
-    const float* __restrict__ alpha_prev, const float* __restrict__ anorm_prev,
-    const float* __restrict__ final_w, const float* __restrict__ logz,
-    float* __restrict__ gamma, int T, int B, int A, int K) {
-  extern __shared__ float smem[];
-  float* beta = smem;
-  float* sum = smem + K;
-  float* red = smem + 2 * K;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  for (int k = tid; k < K; k += kThreads) {
-    beta[k] = final_w[static_cast<size_t>(b) * K + k];
-    sum[k] = 0.f;
-  }
-  __syncthreads();
-  const float lz = logz[b];
-  float bnorm = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row = static_cast<size_t>(t) * B + b;
-    const size_t off = row * A;
-    float lmax = -INFINITY;
-    for (int a = tid; a < A; a += kThreads)
-      lmax = fmaxf(lmax, (w[off + a] + obs[off + a]) + beta[dst[off + a]]);
-    const float mx = fmaxf(block_max(lmax, red), kNegInf);
-    const float act = active[row];
-    const float an = anorm_prev[row];
-    for (int a = tid; a < A; a += kThreads) {
-      const float ow = w[off + a] + obs[off + a];
-      const float bd = beta[dst[off + a]];
-      const int s = src[off + a];
-      atomicAdd(&sum[s], expf(ow + bd - mx));
-      const float lg = alpha_prev[row * K + s] + an + ow + bd + bnorm - lz;
-      gamma[off + a] = act * expf(fminf(lg, 0.f));
-    }
-    __syncthreads();
-    const float m2 = slot_logs(sum, K, mx, red);
-    for (int k = tid; k < K; k += kThreads) {
-      beta[k] = act * (sum[k] - m2) + (1.f - act) * beta[k];
-      sum[k] = 0.f;
-    }
-    bnorm = bnorm + act * m2;
-    __syncthreads();
-  }
-}
-
 // expected-accuracy carry of the sMBR recursions: numer/denom, 0 where denom is 0
 __device__ __forceinline__ float acc_ratio(float numer, float denom) {
   return denom > 0.f ? numer / denom : 0.f;
 }
 
 // ---------------------------------------------------------------------------
-// K9, redesigned for the H100. Still one CTA of kThreads per utterance, but
-// the frame's latency is taken apart:
-// - the band (obs, w, arc_acc, src, dst: 20 bytes an arc) of frames t+1 ..
-//   t+S-1 streams into a shared-memory ring of S stages while frame t runs:
-//   one thread issues a frame's five rows as cp.async.bulk copies that
-//   complete on the stage's mbarrier; a stage holds the frame's first
-//   CH = min(A, kRegArcs * kThreads) arcs (the host picks 2 <= S <= 4 from
-//   the shared memory the [K] carries leave). Arcs past CH are read from
-//   global memory, and so is every arc when there is no ring: A not a
+// K8, K9 and K10, redesigned for the H100. Still one CTA of kThreads per
+// utterance, but the frame's latency is taken apart:
+// - the band streams into a shared-memory ring of S stages, frames ahead of
+//   the one that runs: one thread issues a frame's rows as cp.async.bulk
+//   copies that complete on the stage's mbarrier. A stage holds the frame's
+//   first CH = min(A, kRegArcs * kThreads) arcs of obs, w, src, dst (and
+//   arc_acc for K9/K10), and for K8/K10 the frame's whole [K] rows of
+//   alpha_prev (and aacc_prev), so the per-arc gathers at src read shared
+//   memory. The host picks 2 <= S <= 4 from the shared memory the [K]
+//   carries leave. Arcs past CH are read from global memory, and so is
+//   every arc when there is no ring: A (or, with [K] rows, K) not a
 //   multiple of 4, a row not 16-byte aligned, or two stages do not fit;
-// - each thread computes its arcs' scores and accuracies once, keeps them
+// - each thread computes its arcs' scores (and accuracies) once, keeps them
 //   in registers (kRegArcs a thread; arcs past that are recomputed from
-//   the unchanged carries) from the max to the scatter;
+//   the unchanged carries) from the max to the scatter. K8's gamma and
+//   K10's contribution need no reduction of the frame (only the carries
+//   entering it), so pass 1 computes and stores them too;
 // - four barriers a frame, not six: warp-shuffle maxima, one exchange of
 //   the kWarps warp values, which every warp reduces with four shuffles;
 // - an arc whose exp is exactly 0 (padding in a frame with live arcs) stays
 //   out of the shared atomics: adding +0 changes no sum. An active frame of
 //   padding arcs only still adds exp(0) = 1 to slot 0, as the reference;
 // - an inactive frame (active == 0) does no arc work: the blend would keep
-//   the carries exactly (its new values are finite), so it writes them out.
-// The ring and the two reductions are written to be shared with K10.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, B=32, T=448, K=256,
-// A=512, a decoded batch): 0.937 ms a call against 3.14 ms; clock stamps
-// (tools/kernel_split.py) put a frame's pass 2 (the atomics) at ~24% and
-// pass 1 and the slot pass at ~17% each.
+//   the carries exactly (its new values are finite). K9 writes the carries
+//   out; K8/K10 write 0 for every arc (the reference writes act * x, which
+//   is -0 where x < 0: equal by value).
+// Measured on an H100 80GB HBM3 at 700 W (tools/kernel_ab.py on
+// chip_smoke.padded_lattice, B=32, T=448, K=256, A=512): K8 2.05 → 0.74 ms
+// and K10 2.97 → 0.96 ms a call against the first design (commit
+// 3c9d343's), K9 0.98 → 0.89 ms against that commit's ring; clock stamps
+// (tools/kernel_split.py) put most of a frame in pass 1 and pass 2 (~20%
+// each) and the slot pass (~16%). PERF.md has the splits.
 // ---------------------------------------------------------------------------
 
 constexpr int kRegArcs = 4;  // arcs a thread keeps in registers in a frame
@@ -202,27 +163,34 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// A frame's band in the ring: five rows of ch words, obs, w, arc_acc, src, dst.
+// A band's rows in global memory: the [T,B,A] arc tables and, for the
+// backward kernels, the [T,B,K] forward residuals gathered at src.
 struct BandRows {
   const float* obs;
   const float* w;
-  const float* acc;
   const int* src;
   const int* dst;
+  const float* acc;     // arc_acc (K9, K10)
+  const float* aprev;   // alpha_prev (K8, K10)
+  const float* aaprev;  // aacc_prev (K10)
 };
 
-// The band ring: S stages of five rows of ch words (ch a multiple of 4,
-// rows 16-byte aligned); frame f lives in stage f % S. The last thread (the
-// one least likely to hold arcs or slots) fills a stage with five
-// cp.async.bulk copies that complete on the stage's mbarrier.
+// The band ring: S stages of `words` words each. Stream position i lives in
+// stage i % S, and its mbarrier's parity is that of i / S: K9 streams frame
+// i at position i, K8/K10 frame T-1-i. The kernels step a RingPos along
+// the positions rather than divide by S (two integer divisions a frame
+// cost ~300 cycles on the critical path). A stage is a frame's rows packed
+// in order, each a multiple of 16 bytes (so each 16-byte aligned). The last
+// thread (the one least likely to hold arcs or slots) fills a stage with
+// one cp.async.bulk copy a row, all completing on the stage's mbarrier.
 struct BandRing {
   float* base;
   unsigned long long* bar;  // [S] mbarriers
-  int S, ch;                // stages, arcs a stage
+  int S, words;             // stages, words a stage
 
   static constexpr int kIssuer = kThreads - 1;
 
-  __device__ float* stage(int f) const { return base + (f % S) * 5 * ch; }
+  __device__ float* stage(int s) const { return base + s * words; }
 
   // the issuer initialises the mbarriers; the caller's barrier publishes them
   __device__ void init() const {
@@ -232,26 +200,37 @@ struct BandRing {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // frame f (of T), whose band rows start at off, into its stage; every
-  // thread may call it
-  __device__ void fill(int f, int T, const BandRows& g, size_t off) const {
-    if (f >= T || threadIdx.x != kIssuer) return;
-    float* st = stage(f);
-    const unsigned mb = smem_addr(bar + f % S);
+  // The issuer's fill of stage s with a frame whose arc rows start at word
+  // off and [K] rows at koff: its first ch arcs of the kArcRows arc rows of
+  // g (obs, w, src, dst, then arc_acc), then its kSlotRows [K] rows
+  // (alpha_prev, then aacc_prev). The rows fill the stage, `words` words,
+  // the bytes the mbarrier expects. Every thread may call it; the callers
+  // compute the offsets, off the issuer's path.
+  template <int kArcRows, int kSlotRows>
+  __device__ __forceinline__ void fill(int s, const BandRows& g, size_t off, size_t koff, int ch,
+                                       int K) const {
+    if (threadIdx.x != kIssuer) return;
+    const void* arc[5] = {g.obs + off, g.w + off, g.src + off, g.dst + off, g.acc + off};
+    const void* slot[2] = {kSlotRows > 0 ? g.aprev + koff : nullptr,
+                           kSlotRows > 1 ? g.aaprev + koff : nullptr};
+    float* st = stage(s);
+    const unsigned mb = smem_addr(bar + s);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb),
-                 "r"(5 * ch * 4) : "memory");
-    const void* rows[5] = {g.obs + off, g.w + off, g.acc + off, g.src + off, g.dst + off};
+                 "r"(words * 4) : "memory");
 #pragma unroll
-    for (int r = 0; r < 5; ++r)
+    for (int r = 0; r < kArcRows + kSlotRows; ++r) {
+      const int len = r < kArcRows ? ch : K;
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];\n" ::"r"(smem_addr(st + r * ch)),
-          "l"(rows[r]), "r"(ch * 4), "r"(mb) : "memory");
+          "[%3];\n" ::"r"(smem_addr(st)),
+          "l"(r < kArcRows ? arc[r] : slot[r - kArcRows]), "r"(len * 4), "r"(mb) : "memory");
+      st += len;
+    }
   }
 
-  // frame f's stage has landed
-  __device__ void wait(int f) const {
-    const unsigned mb = smem_addr(bar + f % S), parity = (f / S) & 1;
+  // stage s has landed in the phase of the given parity
+  __device__ void wait(int s, unsigned parity) const {
+    const unsigned mb = smem_addr(bar + s);
     unsigned done = 0;
     do {
       asm volatile(
@@ -259,6 +238,20 @@ struct BandRing {
           " selp.u32 %0, 1, 0, p;\n}\n"
           : "=r"(done) : "r"(mb), "r"(parity) : "memory");
     } while (!done);
+  }
+};
+
+// A stream position's stage and its mbarrier's parity. Starting from
+// (S-1, 1), next() gives position 0's (0, 0), then 1's, and so on.
+struct RingPos {
+  int slot;
+  unsigned parity;
+
+  __device__ void next(int S) {
+    if (++slot == S) {
+      slot = 0;
+      parity ^= 1u;
+    }
   }
 };
 
@@ -295,12 +288,13 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
   float* sum = ring_smem + 2 * K;
   float* num = ring_smem + 3 * K;
   float* red = ring_smem + 4 * K;
-  float* ring_base = red + kWarps;  // S stages of 5 * ch words (16-byte aligned), S mbarriers
+  // S stages of obs, w, src, dst, arc_acc (ch words each, 16-byte aligned), S mbarriers
+  float* ring_base = red + kWarps;
   const BandRing ring{ring_base, reinterpret_cast<unsigned long long*>(ring_base + S * 5 * ch), S,
-                      ch};
+                      5 * ch};
   const int b = blockIdx.x, tid = threadIdx.x;
-  const BandRows g{obs, w, arc_acc, src, dst};
   const int nring = S > 0 ? ch : 0;
+  const BandRows g{obs, w, src, dst, arc_acc, nullptr, nullptr};
   const size_t frame = static_cast<size_t>(B) * A;  // words from one frame's band to the next
   for (int k = tid; k < K; k += kThreads) {
     alpha[k] = k == 0 ? 0.f : kNegInf;
@@ -310,18 +304,21 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
   }
   ring.init();
   __syncthreads();
-  for (int f = 0; f < S; ++f) ring.fill(f, T, g, f * frame + static_cast<size_t>(b) * A);
+  for (int t = 0; t < S && t < T; ++t)
+    ring.fill<5, 0>(t, g, t * frame + static_cast<size_t>(b) * A, 0, ch, K);
   float norm = 0.f;
   float act_next = active[b];
+  RingPos pos{S - 1, 1u};
   for (int t = 0; t < T; ++t) {
+    pos.next(S);  // frame t's stage
     const size_t row = static_cast<size_t>(t) * B + b;
     const size_t off = row * A;
     const float act = act_next;
     if (t + 1 < T) act_next = active[row + B];  // in flight during the frame
-    const float* stage = S > 0 ? ring.stage(t) : ring_base;
-    const int* ssrc = reinterpret_cast<const int*>(stage + 3 * ch);
-    const int* sdst = reinterpret_cast<const int*>(stage + 4 * ch);
-    if (S > 0) ring.wait(t);  // frame t's stage has landed
+    const float* stage = S > 0 ? ring.stage(pos.slot) : ring_base;
+    const int* ssrc = reinterpret_cast<const int*>(stage + 2 * ch);
+    const int* sdst = reinterpret_cast<const int*>(stage + 3 * ch);
+    if (S > 0) ring.wait(pos.slot, pos.parity);  // frame t's stage has landed
     __syncthreads();  // B0: ... in every thread, and the last frame's carries are final
     if (act == 0.f) {  // the blend keeps the carries: write them out, skip the arcs
       for (int k = tid; k < K; k += kThreads) {
@@ -329,7 +326,8 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
         aaccs[row * K + k] = aacc[k];
       }
       if (tid == 0) norms[row] = norm;
-      if (S > 0) ring.fill(t + S, T, g, off + S * frame);  // no one reads frame t's stage
+      if (S > 0 && t + S < T)  // no one reads frame t's stage
+        ring.fill<5, 0>(pos.slot, g, off + S * frame, 0, ch, K);
       continue;
     }
     // pass 1: scores and accuracies of this thread's arcs, and their max
@@ -345,15 +343,15 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
         if (a < nring) {
           o = stage[a];
           ww = stage[ch + a];
-          ac = stage[2 * ch + a];
           s = ssrc[a];
           dd[j] = sdst[a];
+          ac = stage[4 * ch + a];
         } else {
           o = obs[off + a];
           ww = w[off + a];
-          ac = arc_acc[off + a];
           s = src[off + a];
           dd[j] = dst[off + a];
+          ac = arc_acc[off + a];
         }
         sc[j] = alpha[s] + ww + o;
         ai[j] = aacc[s] + ac;
@@ -385,7 +383,8 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
       }
     }
     __syncthreads();  // B2: every arc is in its slot
-    if (S > 0) ring.fill(t + S, T, g, off + S * frame);  // stage t is free since B1
+    if (S > 0 && t + S < T)  // frame t's stage is free since B1
+      ring.fill<5, 0>(pos.slot, g, off + S * frame, 0, ch, K);
     float lm = -INFINITY;
     for (int k = tid; k < K; k += kThreads) {
       const float r = acc_ratio(num[k], sum[k]);
@@ -412,62 +411,183 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
   }
 }
 
-// K10
-__global__ void __launch_bounds__(kThreads) smbr_bwd_kernel(
+// an arc's output from its log gamma lg (and, for K10, its accuracy c_arc):
+// gamma (K8) or gamma * (c_arc - f) (K10), in the reference's order
+template <bool kAcc>
+__device__ __forceinline__ float arc_output(float act, float lg, float c, float fb) {
+  const float g = expf(fminf(lg, 0.f));
+  return kAcc ? act * (g * (c - fb)) : act * g;
+}
+
+// K8 (kAcc = false): the beta recursion and gamma = exp(min(log gamma, 0))
+// per arc. K10 (kAcc = true): beta and the accuracy-beta bacc, and
+// gamma * (c_arc - f) per arc. Frames in reverse: stream position i is
+// frame T-1-i. The plain versions: occupancies_bwd_plain and
+// smbr_contribs_bwd_plain (ops/fb_lattice_cuda.py).
+// One CTA an SM is stated: without it ptxas holds the template to 64
+// registers and spills.
+template <bool kAcc>
+__global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(
     const float* __restrict__ obs, const int* __restrict__ src, const int* __restrict__ dst,
     const float* __restrict__ w, const float* __restrict__ active,
     const float* __restrict__ arc_acc, const float* __restrict__ alpha_prev,
     const float* __restrict__ aacc_prev, const float* __restrict__ anorm_prev,
     const float* __restrict__ final_w, const float* __restrict__ logz,
-    const float* __restrict__ f, float* __restrict__ contrib, int T, int B, int A, int K) {
-  extern __shared__ float smem[];
-  float* beta = smem;
-  float* bacc = smem + K;
-  float* sum = smem + 2 * K;
-  float* num = smem + 3 * K;
-  float* red = smem + 4 * K;
+    const float* __restrict__ f, float* __restrict__ out, int T, int B, int A, int K, int S,
+    int ch) {
+  constexpr int kArcRows = kAcc ? 5 : 4;  // obs, w, src, dst (, arc_acc): ch words each
+  constexpr int kSlotRows = kAcc ? 2 : 1;  // alpha_prev (, aacc_prev): K words each
+  extern __shared__ __align__(16) float ring_smem[];
+  float* beta = ring_smem;
+  float* sum = ring_smem + K;
+  float* bacc = ring_smem + 2 * K;  // K10 only, as num
+  float* num = ring_smem + 3 * K;
+  float* red = ring_smem + (kAcc ? 4 : 2) * K;
+  // S stages (16-byte aligned when the ring is on: K % 4 == 0), S mbarriers
+  float* ring_base = red + kWarps;
+  const int words = kArcRows * ch + kSlotRows * K;
+  const BandRing ring{ring_base, reinterpret_cast<unsigned long long*>(ring_base + S * words), S,
+                      words};
   const int b = blockIdx.x, tid = threadIdx.x;
+  const int nring = S > 0 ? ch : 0;
+  const BandRows g{obs, w, src, dst, arc_acc, alpha_prev, aacc_prev};
+  // words from one frame's arc rows, and [K] rows, to the next
+  const size_t frame = static_cast<size_t>(B) * A, kframe = static_cast<size_t>(B) * K;
   for (int k = tid; k < K; k += kThreads) {
     beta[k] = final_w[static_cast<size_t>(b) * K + k];
-    bacc[k] = 0.f;
     sum[k] = 0.f;
-    num[k] = 0.f;
-  }
-  __syncthreads();
-  const float lz = logz[b], fb = f[b];
-  float bnorm = 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row = static_cast<size_t>(t) * B + b;
-    const size_t off = row * A;
-    float lmax = -INFINITY;
-    for (int a = tid; a < A; a += kThreads)
-      lmax = fmaxf(lmax, (w[off + a] + obs[off + a]) + beta[dst[off + a]]);
-    const float mx = fmaxf(block_max(lmax, red), kNegInf);
-    const float act = active[row];
-    const float an = anorm_prev[row];
-    for (int a = tid; a < A; a += kThreads) {
-      const int s = src[off + a], d = dst[off + a];
-      const float ow = w[off + a] + obs[off + a];
-      const float bd = beta[d], bcd = bacc[d], acc = arc_acc[off + a];
-      const float lg = alpha_prev[row * K + s] + an + ow + bd + bnorm - lz;
-      const float g = expf(fminf(lg, 0.f));
-      const float c = aacc_prev[row * K + s] + acc + bcd;
-      contrib[off + a] = act * (g * (c - fb));
-      const float lin = expf(ow + bd - mx);
-      atomicAdd(&sum[s], lin);
-      atomicAdd(&num[s], lin * (acc + bcd));
-    }
-    __syncthreads();
-    for (int k = tid; k < K; k += kThreads) num[k] = acc_ratio(num[k], sum[k]);
-    const float m2 = slot_logs(sum, K, mx, red);
-    for (int k = tid; k < K; k += kThreads) {
-      beta[k] = act * (sum[k] - m2) + (1.f - act) * beta[k];
-      bacc[k] = act * num[k] + (1.f - act) * bacc[k];
-      sum[k] = 0.f;
+    if (kAcc) {
+      bacc[k] = 0.f;
       num[k] = 0.f;
     }
+  }
+  ring.init();
+  __syncthreads();
+  for (int i = 0; i < S && i < T; ++i) {
+    const size_t row = static_cast<size_t>(T - 1 - i) * B + b;
+    ring.fill<kArcRows, kSlotRows>(i, g, row * A, row * K, ch, K);
+  }
+  const float lz = logz[b], fb = kAcc ? f[b] : 0.f;
+  float bnorm = 0.f;
+  float act_next = active[static_cast<size_t>(T - 1) * B + b];
+  float an_next = anorm_prev[static_cast<size_t>(T - 1) * B + b];
+  RingPos pos{S - 1, 1u};
+  for (int i = 0; i < T; ++i) {
+    pos.next(S);  // position i's stage
+    const int t = T - 1 - i;
+    const size_t row = static_cast<size_t>(t) * B + b;
+    const size_t off = row * A, koff = row * K;
+    const float act = act_next, an = an_next;
+    if (t > 0) {  // in flight during the frame
+      act_next = active[row - B];
+      an_next = anorm_prev[row - B];
+    }
+    const float* stage = S > 0 ? ring.stage(pos.slot) : ring_base;
+    const int* ssrc = reinterpret_cast<const int*>(stage + 2 * ch);
+    const int* sdst = reinterpret_cast<const int*>(stage + 3 * ch);
+    const float* sap = stage + kArcRows * ch;  // the frame's alpha_prev row
+    if (S > 0) ring.wait(pos.slot, pos.parity);  // position i's stage has landed
+    __syncthreads();  // B0: ... in every thread, and the last frame's carries are final
+    if (act == 0.f) {  // the blend keeps the carries: the arcs' outputs are 0
+      for (int a = tid; a < A; a += kThreads) out[off + a] = 0.f;
+      if (S > 0 && i + S < T)  // no one reads position i's stage
+        ring.fill<kArcRows, kSlotRows>(pos.slot, g, off - S * frame, koff - S * kframe, ch, K);
+      continue;
+    }
+    // pass 1: each arc's score (and accuracy) into registers, its output
+    // out, and the scores' max
+    float sc[kRegArcs], ai[kRegArcs];
+    int ss[kRegArcs];
+    float lmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kRegArcs; ++j) {
+      const int a = tid + j * kThreads;
+      if (a < A) {
+        int s, d;
+        float o, ww, ac = 0.f, ap, aap = 0.f;
+        if (a < nring) {
+          o = stage[a];
+          ww = stage[ch + a];
+          s = ssrc[a];
+          d = sdst[a];
+          ap = sap[s];
+          if (kAcc) {
+            ac = stage[4 * ch + a];
+            aap = sap[K + s];
+          }
+        } else {
+          o = obs[off + a];
+          ww = w[off + a];
+          s = src[off + a];
+          d = dst[off + a];
+          ap = alpha_prev[koff + s];
+          if (kAcc) {
+            ac = arc_acc[off + a];
+            aap = aacc_prev[koff + s];
+          }
+        }
+        const float ow = ww + o, bd = beta[d];
+        const float bcd = kAcc ? bacc[d] : 0.f;
+        ss[j] = s;
+        sc[j] = ow + bd;
+        ai[j] = ac + bcd;
+        out[off + a] = arc_output<kAcc>(act, ap + an + ow + bd + bnorm - lz, aap + ac + bcd, fb);
+        lmax = fmaxf(lmax, sc[j]);
+      }
+    }
+    for (int a = tid + kRegArcs * kThreads; a < A; a += kThreads) {
+      const int s = src[off + a], d = dst[off + a];
+      const float ow = w[off + a] + obs[off + a], bd = beta[d];
+      const float ac = kAcc ? arc_acc[off + a] : 0.f;
+      const float c = kAcc ? aacc_prev[koff + s] + ac + bacc[d] : 0.f;
+      out[off + a] = arc_output<kAcc>(act, alpha_prev[koff + s] + an + ow + bd + bnorm - lz, c,
+                                      fb);
+      lmax = fmaxf(lmax, ow + bd);
+    }
+    post_warp_max(lmax, red);
+    __syncthreads();  // B1: the posts are in; no thread reads this frame's stage again
+    const float mx = fmaxf(read_block_max(red), kNegInf);
+    // pass 2: the arcs' linear weights into their source slots
+#pragma unroll
+    for (int j = 0; j < kRegArcs; ++j) {
+      if (tid + j * kThreads < A) {
+        const float lin = expf(sc[j] - mx);
+        if (lin != 0.f) {
+          atomicAdd(&sum[ss[j]], lin);
+          if (kAcc) atomicAdd(&num[ss[j]], lin * ai[j]);
+        }
+      }
+    }
+    for (int a = tid + kRegArcs * kThreads; a < A; a += kThreads) {
+      const int s = src[off + a], d = dst[off + a];
+      const float lin = expf(w[off + a] + obs[off + a] + beta[d] - mx);
+      if (lin != 0.f) {
+        atomicAdd(&sum[s], lin);
+        if (kAcc) atomicAdd(&num[s], lin * (arc_acc[off + a] + bacc[d]));
+      }
+    }
+    __syncthreads();  // B2: every arc is in its slot
+    if (S > 0 && i + S < T)  // position i's stage is free since B1
+      ring.fill<kArcRows, kSlotRows>(pos.slot, g, off - S * frame, koff - S * kframe, ch, K);
+    float lm = -INFINITY;
+    for (int k = tid; k < K; k += kThreads) {
+      if (kAcc) num[k] = acc_ratio(num[k], sum[k]);
+      const float v = log_safe(sum[k]) + mx;
+      sum[k] = v;
+      lm = fmaxf(lm, v);
+    }
+    post_warp_max(lm, red);
+    __syncthreads();  // B3: the slots' maxima are in
+    const float m2 = read_block_max(red);
+    for (int k = tid; k < K; k += kThreads) {
+      beta[k] = act * (sum[k] - m2) + (1.f - act) * beta[k];
+      sum[k] = 0.f;
+      if (kAcc) {
+        bacc[k] = act * num[k] + (1.f - act) * bacc[k];
+        num[k] = 0.f;
+      }
+    }
     bnorm = bnorm + act * m2;
-    __syncthreads();
   }
 }
 
@@ -482,6 +602,70 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   return cudaSuccess;
+}
+
+// The band ring of a kernel with n_bufs [K] carries and accumulators, whose
+// stage holds arc_rows rows of a frame's first arcs and slot_rows [K] rows,
+// at (A, K): *stages (0: no ring) stages of *chunk arcs each, and the
+// launch's dynamic shared memory; -1 if the carries do not fit. The bulk
+// copies move whole 16-byte words, so A % 4 != 0 (or K % 4 != 0 with [K]
+// rows) takes no ring.
+int band_ring(int A, int K, int n_bufs, int arc_rows, int slot_rows, int* stages, int* chunk,
+              size_t* smem) {
+  const size_t carries = smem_bytes(n_bufs, K), bars = kMaxStages * sizeof(unsigned long long);
+  *stages = *chunk = 0;
+  *smem = carries;
+  if (carries > static_cast<size_t>(kMaxSmemBytes)) return -1;
+  if (A % 4 != 0 || (slot_rows > 0 && K % 4 != 0) ||
+      carries + bars >= static_cast<size_t>(kMaxSmemBytes))
+    return 0;
+  const size_t room = kMaxSmemBytes - carries - bars;
+  const int ch = A < kRegArcs * kThreads ? A : kRegArcs * kThreads;
+  const size_t stage =
+      (static_cast<size_t>(arc_rows) * ch + static_cast<size_t>(slot_rows) * K) * sizeof(float);
+  for (int s = kMaxStages; s >= 2; --s) {
+    if (s * stage > room) continue;
+    *stages = s;
+    *chunk = ch;
+    *smem = carries + s * stage + bars;
+    return 0;
+  }
+  return 0;
+}
+
+// K9's ring: 4 [K] buffers, 5 arc rows; K8's and K10's: 2 buffers, 4 arc
+// rows and alpha_prev, or 4 buffers, 5 arc rows, alpha_prev and aacc_prev
+int fwd_ring(int A, int K, int* stages, int* chunk, size_t* smem) {
+  return band_ring(A, K, 4, 5, 0, stages, chunk, smem);
+}
+
+int bwd_ring(int A, int K, bool acc, int* stages, int* chunk, size_t* smem) {
+  return acc ? band_ring(A, K, 4, 5, 2, stages, chunk, smem)
+             : band_ring(A, K, 2, 4, 1, stages, chunk, smem);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+template <bool kAcc>
+int launch_bwd(const float* obs, const int* src, const int* dst, const float* w,
+               const float* active, const float* arc_acc, const float* alpha_prev,
+               const float* aacc_prev, const float* anorm_prev, const float* final_w,
+               const float* logz, const float* f, float* out, int T, int B, int A, int K,
+               void* stream) {
+  int stages = 0, ch = 0;
+  size_t smem = 0;
+  if (bwd_ring(A, K, kAcc, &stages, &ch, &smem) < 0) return cudaErrorInvalidValue;
+  if (!(aligned16(obs) && aligned16(src) && aligned16(dst) && aligned16(w) &&
+        aligned16(alpha_prev) && (!kAcc || (aligned16(arc_acc) && aligned16(aacc_prev))))) {
+    stages = ch = 0;  // the bulk copies need 16-byte aligned rows: no ring
+    smem = smem_bytes(kAcc ? 4 : 2, K);
+  }
+  cudaError_t e = prepare(band_bwd_kernel<kAcc>, smem);
+  if (e != cudaSuccess) return e;
+  band_bwd_kernel<kAcc><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      obs, src, dst, w, active, arc_acc, alpha_prev, aacc_prev, anorm_prev, final_w, logz, f,
+      out, T, B, A, K, stages, ch);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -509,40 +693,20 @@ int pk2_latfb_occupancies_bwd(const float* obs, const int* src, const int* dst, 
                               const float* anorm_prev, const float* final_w,
                               const float* logz, float* gamma, int T, int B, int A, int K,
                               void* stream) {
-  const size_t smem = smem_bytes(2, K);
-  cudaError_t e = prepare(occupancies_bwd_kernel, smem);
-  if (e != cudaSuccess) return e;
-  occupancies_bwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      obs, src, dst, w, active, alpha_prev, anorm_prev, final_w, logz, gamma, T, B, A, K);
-  return cudaGetLastError();
+  return launch_bwd<false>(obs, src, dst, w, active, nullptr, alpha_prev, nullptr, anorm_prev,
+                           final_w, logz, nullptr, gamma, T, B, A, K, stream);
 }
 
-// K9's ring at (A, K): *stages (0: no ring) stages of *chunk arcs each, and
-// the dynamic shared memory of the launch; -1 if K's carries do not fit.
-// The bulk copies move whole 16-byte words, so A % 4 != 0 takes no ring.
-static int smbr_fwd_ring(int A, int K, int* stages, int* chunk, size_t* smem) {
-  const size_t carries = smem_bytes(4, K), bars = kMaxStages * sizeof(unsigned long long);
-  *stages = *chunk = 0;
-  *smem = carries;
-  if (carries > static_cast<size_t>(kMaxSmemBytes)) return -1;
-  if (A % 4 != 0 || carries + bars >= static_cast<size_t>(kMaxSmemBytes)) return 0;
-  const size_t room = kMaxSmemBytes - carries - bars;
-  const int ch = A < kRegArcs * kThreads ? A : kRegArcs * kThreads;
-  for (int s = kMaxStages; s >= 2; --s) {
-    if (static_cast<size_t>(s) * 5 * ch * sizeof(float) > room) continue;
-    *stages = s;
-    *chunk = ch;
-    *smem = carries + static_cast<size_t>(s) * 5 * ch * sizeof(float) + bars;
-    return 0;
-  }
-  return 0;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
-
+// K9's ring at (A, K): *stages (0: no ring) stages of *chunk arcs each
 int pk2_latfb_smbr_fwd_ring(int A, int K, int* stages, int* chunk) {
   size_t smem = 0;
-  return smbr_fwd_ring(A, K, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
+  return fwd_ring(A, K, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
+}
+
+// K8's (acc = 0) or K10's (acc = 1) ring at (A, K), as K9's
+int pk2_latfb_bwd_ring(int A, int K, int acc, int* stages, int* chunk) {
+  size_t smem = 0;
+  return bwd_ring(A, K, acc != 0, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
 }
 
 int pk2_latfb_smbr_fwd(const float* obs, const int* src, const int* dst, const float* w,
@@ -551,7 +715,7 @@ int pk2_latfb_smbr_fwd(const float* obs, const int* src, const int* dst, const f
                        void* stream) {
   int stages = 0, ch = 0;
   size_t smem = 0;
-  if (smbr_fwd_ring(A, K, &stages, &ch, &smem) < 0) return cudaErrorInvalidValue;
+  if (fwd_ring(A, K, &stages, &ch, &smem) < 0) return cudaErrorInvalidValue;
   if (!(aligned16(obs) && aligned16(src) && aligned16(dst) && aligned16(w) &&
         aligned16(arc_acc))) {  // the bulk copies need 16-byte aligned rows: no ring
     stages = ch = 0;
@@ -569,13 +733,8 @@ int pk2_latfb_smbr_bwd(const float* obs, const int* src, const int* dst, const f
                        const float* aacc_prev, const float* anorm_prev,
                        const float* final_w, const float* logz, const float* f,
                        float* contrib, int T, int B, int A, int K, void* stream) {
-  const size_t smem = smem_bytes(4, K);
-  cudaError_t e = prepare(smbr_bwd_kernel, smem);
-  if (e != cudaSuccess) return e;
-  smbr_bwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      obs, src, dst, w, active, arc_acc, alpha_prev, aacc_prev, anorm_prev, final_w, logz,
-      f, contrib, T, B, A, K);
-  return cudaGetLastError();
+  return launch_bwd<true>(obs, src, dst, w, active, arc_acc, alpha_prev, aacc_prev, anorm_prev,
+                          final_w, logz, f, contrib, T, B, A, K, stream);
 }
 
 }  // extern "C"

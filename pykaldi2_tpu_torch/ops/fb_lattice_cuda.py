@@ -181,6 +181,8 @@ def _lib() -> ctypes.CDLL:
         lib.pk2_latfb_max_slots.restype = ci
         lib.pk2_latfb_smbr_fwd_ring.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
         lib.pk2_latfb_smbr_fwd_ring.restype = ci
+        lib.pk2_latfb_bwd_ring.argtypes = [ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.pk2_latfb_bwd_ring.restype = ci
         lib._pk2_typed = True
     return lib
 
@@ -198,6 +200,19 @@ def smbr_fwd_ring(a: int, k: int) -> Tuple[int, int]:
     stages, chunk = ctypes.c_int(), ctypes.c_int()
     D.check_launch(_lib().pk2_latfb_smbr_fwd_ring(a, k, ctypes.byref(stages),
                                                   ctypes.byref(chunk)), "K9 ring size")
+    return stages.value, chunk.value
+
+
+def bwd_ring(a: int, k: int, acc: bool) -> Tuple[int, int]:
+    """K8's (``acc`` false) or K10's band ring at A arcs and K slots a frame:
+    (stages, arcs a stage). A stage also holds the frame's [K] row of
+    alpha_prev (and aacc_prev for K10), so K must be a multiple of 4 as
+    well as A; (0, 0) otherwise, or when the carries leave no room for two
+    stages, and the band is read from global memory (as it is when a row is
+    not 16-byte aligned)."""
+    stages, chunk = ctypes.c_int(), ctypes.c_int()
+    D.check_launch(_lib().pk2_latfb_bwd_ring(a, k, int(acc), ctypes.byref(stages),
+                                             ctypes.byref(chunk)), "K8/K10 ring size")
     return stages.value, chunk.value
 
 

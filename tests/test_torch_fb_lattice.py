@@ -5,7 +5,7 @@ lattices with NEG_INF padding arcs, a slot count off the lane multiple, K≠A,
 and a band wide enough that the Pallas kernels chunk it) and one more,
 ``packed_padding``: padding arcs at src = dst = 0 as ``pack_time_sync``
 writes them, inactive frames, and an active frame of padding arcs only, whose
-arcs each add exp(0) = 1 to slot 0 (the paths the CUDA K9 skips around):
+arcs each add exp(0) = 1 to slot 0 (the paths the CUDA K8-K10 skip around):
 
   * the plain versions of K7-K10 (ops/fb_lattice_cuda.py) against the Pallas
     kernels ``make_logz_fwd`` / ``make_occupancies_bwd`` / ``make_smbr_fwd`` /
@@ -233,6 +233,73 @@ def test_smbr_contribs_bwd_plain_matches_pallas(_interpret, case):
     got = KC.smbr_contribs_bwd_plain(*_t(band + [arc_acc, alpha_prev, aacc_prev, anorm_prev,
                                                  lat["final"], logz, f]))
     np.testing.assert_allclose(got.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-5)
+
+
+def _bwd_outputs(band, arc_acc, final, kernel, jax_side):
+    """K8's gamma or K10's contributions [T,B,A] for one band, from that
+    band's own forward residuals: the Pallas kernels (interpret mode, K
+    padded to 128) or the port's plain versions."""
+    k = final.shape[1]
+    kp = -(-k // 128) * 128 if jax_side else k
+    fin = _pad_k(final, kp, NEG_INF)
+    if jax_side:
+        jb = [jnp.asarray(x) for x in band]
+        fwd = (make_logz_fwd(kp)(*jb) if kernel == "occupancies"
+               else make_smbr_fwd(kp)(*jb, jnp.asarray(arc_acc)))
+        fwd = [np.asarray(x) for x in fwd]
+    else:
+        fwd = _fwd_residuals(band, k, None if kernel == "occupancies" else arc_acc)
+        fwd = [x for x in fwd if x is not None]
+    alphas, norms = fwd[0], fwd[-1]
+    total = np.maximum(alphas[-1] + fin, NEG_INF)
+    wsm = np.exp(total - total.max(1, keepdims=True))
+    logz = (np.log(wsm.sum(1)) + total.max(1) + norms[-1]).astype(np.float32)[:, None]
+    a0 = np.full((B, kp), NEG_INF, np.float32)
+    a0[:, 0] = 0.0
+    res = [_prev_np(alphas, a0), _prev_np(norms, np.zeros(B, np.float32))[:, :, None]]
+    if kernel == "occupancies":
+        args = band + res + [fin, logz]
+        if jax_side:
+            return np.asarray(make_occupancies_bwd(kp)(*(jnp.asarray(x) for x in args)))
+        return KC.occupancies_bwd_plain(*_t(args)).numpy()
+    f = ((wsm / wsm.sum(1, keepdims=True)) * fwd[1][-1]).sum(1).astype(np.float32)[:, None]
+    args = band + [arc_acc, res[0], _prev_np(fwd[1], np.zeros((B, kp), np.float32)), res[1],
+                   fin, logz, f]
+    if jax_side:
+        return np.asarray(make_smbr_contribs_bwd(kp)(*(jnp.asarray(x) for x in args)))
+    return KC.smbr_contribs_bwd_plain(*_t(args)).numpy()
+
+
+@pytest.mark.parametrize("kernel", ["occupancies", "contribs"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_outputs_ignore_inactive_frames(_interpret, case, kernel):
+    """What lets K8 and K10 skip an inactive frame without reading its arcs:
+    the reference's backward kernels (``_bwd_kernel``, ``_smbr_bwd_kernel``)
+    and the port's plain versions give the same gamma and contributions, by
+    value, whatever finite live arcs the frames past an utterance's end
+    hold, and 0 on those frames (the blend keeps the carries exactly)."""
+    lat, obs, lens = _inputs(case, 21)
+    lens[0] = T - 2
+    band = _band_np(lat, obs, lens)
+    arc_acc = _arc_acc_np(lat, 22)
+    k, a = lat["final"].shape[1], lat["src"].shape[2]
+    live, live_acc = [x.copy() for x in band], arc_acc.copy()
+    rng = np.random.RandomState(23)
+    for i in np.flatnonzero(lens < T):
+        n = T - lens[i]
+        live[0][lens[i]:, i] = rng.randn(n, a)
+        live[1][lens[i]:, i] = rng.randint(0, k, (n, a))
+        live[2][lens[i]:, i] = rng.randint(0, k, (n, a))
+        live[3][lens[i]:, i] = rng.randn(n, a) * 0.3
+        live_acc[lens[i]:, i] = rng.randint(0, 2, (n, a))
+    inactive = band[4][:, :, 0] == 0
+    assert inactive.any()
+    for jax_side in (True, False):
+        want = _bwd_outputs(band, arc_acc, lat["final"], kernel, jax_side)
+        got = _bwd_outputs(live, live_acc, lat["final"], kernel, jax_side)
+        assert np.array_equal(got, want), f"jax={jax_side}: inactive frames' arcs leak"
+        assert np.array_equal(got[inactive], np.zeros_like(got[inactive]))
+        assert np.abs(want).sum() > 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

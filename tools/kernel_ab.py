@@ -1,23 +1,25 @@
-"""Time the port's K5, K6, K9 and K11 against an earlier version of their sources, in one process.
+"""Time the port's K5, K6, K8-K11 against an earlier version of their sources, in one process.
 
     git archive <commit> pykaldi2_tpu_torch/csrc | tar -x -C build/parent
-    python3 tools/kernel_ab.py --parent build/parent/pykaldi2_tpu_torch/csrc [--what k5,k6,k9,k11]
+    python3 tools/kernel_ab.py --parent build/parent/pykaldi2_tpu_torch/csrc \
+        [--what k5,k6,k8,k9,k10,k11]
 
 Builds the earlier ``lstm.cu``, ``latfb.cu`` and ``blockfb.cu`` with the
 port's nvcc flags into ``build/ab/``, and times, on the same inputs and card,
 the earlier and the current kernel in turns (earlier, current, current,
 earlier; CUDA-event means) at the main path's shapes: K5 and K6 at B=64,
-T=80, H=1024, P=512, K9 on chip_smoke's ``padded_lattice`` (B=32, T=448,
-K=256, A=512) and probe lattice (K=A=256), K11 on chip_smoke's 96k-state
-chain graph at R=16 and 32 in both orientations. The earlier K5 and K9 take
-the same C arguments as the current ones, and so does the earlier K6;
+T=80, H=1024, P=512, K8, K9 and K10 on chip_smoke's ``padded_lattice``
+(B=32, T=448, K=256, A=512) and probe lattice (K=A=256), K8 and K10 fed
+the plain forwards' residuals, K11 on chip_smoke's 96k-state chain graph at
+R=16 and 32 in both orientations. The earlier K5, K6 and K8-K10 take the
+same C arguments as the current ones;
 the earlier K11 takes the CSR row pointer where the current one takes
 segment descriptors
 (the first K11, as in commit 7ff1e87, told apart by its source naming no
 ``segdesc``); both K11s are launched
 through ctypes directly, into buffers allocated once, since the wrapper's
 per-call host work takes about as long as the kernel. Each earlier result is
-held against the current one (K5 and K6 within chip_smoke's ``TOL``, K9
+held against the current one (K5 and K6 within chip_smoke's ``TOL``, K8-K10
 within ``LAT_TOL``, K11 within ``BLOCK_TOL`` of the row max). Needs a CUDA
 card and nvcc.
 """
@@ -140,7 +142,10 @@ def k5_ab(parent_lib) -> None:
     turns(f"K5 B={b} T={t} H={h} P={p}", lambda: run(parent_lib), lambda: run(current_lib), 20)
 
 
-def k9_ab(parent_lib) -> None:
+def latfb_ab(parent_lib, kernels: list) -> None:
+    """K8, K9 and K10 (those named in ``kernels``) on chip_smoke's
+    ``padded_lattice`` and probe bands; K8 and K10 take the plain forwards'
+    residuals."""
     import torch
 
     import chip_smoke as C
@@ -149,8 +154,10 @@ def k9_ab(parent_lib) -> None:
     from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    parent_lib.pk2_latfb_smbr_fwd.argtypes = [vp] * 9 + [ci] * 4 + [vp]
-    parent_lib.pk2_latfb_smbr_fwd.restype = ci
+    for fn, n_ptr in (("pk2_latfb_occupancies_bwd", 10), ("pk2_latfb_smbr_fwd", 9),
+                      ("pk2_latfb_smbr_bwd", 13)):
+        getattr(parent_lib, fn).argtypes = [vp] * n_ptr + [ci] * 4 + [vp]
+        getattr(parent_lib, fn).restype = ci
     parent_lib.pk2_latfb_max_slots.argtypes = [ci]
     parent_lib.pk2_latfb_max_slots.restype = ci
     parent_lib._pk2_typed = True
@@ -174,22 +181,40 @@ def k9_ab(parent_lib) -> None:
         band = FL._band(obs, lat)
         active = FL._active_ts(t, nf)
         arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
+        ks = lat.num_slots
+        args8, args10 = C.latfb_bwd_args(band, active, arc_acc, lat,
+                                         KC.logz_fwd_plain(*band, active, ks),
+                                         KC.smbr_fwd_plain(*band, active, arc_acc, ks))
+        shape = f"{label} B={b} T={t} K={ks} A={lat.src.shape[2]}"
+        calls = {"k8": lambda: KC.occupancies_bwd(*args8),
+                 "k9": lambda: KC.smbr_fwd(*band, active, arc_acc, ks),
+                 "k10": lambda: KC.smbr_contribs_bwd(*args10)}
+        for what in (w for w in ("k8", "k9", "k10") if w in kernels):
 
-        def run(lib):
-            D._LIBS["latfb"] = lib
-            out = KC.smbr_fwd(*band, active, arc_acc, lat.num_slots)
-            D._LIBS["latfb"] = current_lib
-            return out
+            def run(lib, call=calls[what]):
+                D._LIBS["latfb"] = lib
+                out = call()
+                D._LIBS["latfb"] = current_lib
+                return out
 
-        old, new = run(parent_lib), run(current_lib)
-        torch.cuda.synchronize()
-        C.close_log(f"K9 {label} alphas earlier vs current", new[0], old[0])
-        C.close(f"K9 {label} aaccs earlier vs current", new[1], old[1], C.LAT_TOL["abs"],
-                C.LAT_TOL["rel"])
-        C.close(f"K9 {label} norms earlier vs current", new[2], old[2], C.LAT_TOL["log"],
-                C.LAT_TOL["log"])
-        turns(f"K9 {label} B={b} T={t} K={lat.num_slots} A={lat.src.shape[2]}",
-              lambda: run(parent_lib), lambda: run(current_lib), 10)
+            old, new = run(parent_lib), run(current_lib)
+            torch.cuda.synchronize()
+            name = f"{what.upper()} {label}"
+            if what == "k9":
+                C.close_log(f"{name} alphas earlier vs current", new[0], old[0])
+                C.close(f"{name} aaccs earlier vs current", new[1], old[1], C.LAT_TOL["abs"],
+                        C.LAT_TOL["rel"])
+                C.close(f"{name} norms earlier vs current", new[2], old[2], C.LAT_TOL["log"],
+                        C.LAT_TOL["log"])
+            elif what == "k8":
+                C.close(f"{name} gamma earlier vs current", new, old, C.LAT_TOL["abs"],
+                        C.LAT_TOL["rel"])
+            else:
+                C.close(f"{name} contrib earlier vs current", new, old,
+                        C.LAT_TOL["abs"] * torch.clamp(args10[-1].abs(), min=1.0)[None],
+                        C.LAT_TOL["rel"])
+            turns(f"{what.upper()} {shape}", lambda: run(parent_lib), lambda: run(current_lib),
+                  10)
 
 
 def k11_ab(parent_lib, parent_takes_rowptr: bool) -> None:
@@ -249,7 +274,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="csrc directory of the earlier version")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
-    ap.add_argument("--what", default="k5,k6,k9,k11")
+    ap.add_argument("--what", default="k5,k6,k8,k9,k10,k11")
     args = ap.parse_args(argv)
     import torch
 
@@ -269,8 +294,8 @@ def main(argv=None) -> int:
             k5_ab(lstm_parent)
         if "k6" in what:
             k6_ab(lstm_parent)
-    if "k9" in what:
-        k9_ab(build(args.parent, "latfb", args.out))
+    if {"k8", "k9", "k10"} & set(what):
+        latfb_ab(build(args.parent, "latfb", args.out), what)
     if "k11" in what:
         with open(os.path.join(args.parent, "blockfb.cu")) as f:
             takes_rowptr = "segdesc" not in f.read()

@@ -1,10 +1,12 @@
 """Split a hand-written kernel's time into its parts with clock64() stamps.
 
-    python3 tools/kernel_split.py [--src DIR] [--what k5,k6,k9,k11] [--out build/split]
+    python3 tools/kernel_split.py [--src DIR] [--what k5,k6,k8,k9,k10,k11] [--out build/split]
     python3 tools/kernel_split.py --src <csrc of commit 7ff1e87> --what k6_first,k11_first
     python3 tools/kernel_split.py --src <csrc of commit 7f9f2ed> --what k5_first,k9_first
+    python3 tools/kernel_split.py --src <csrc of commit 3c9d343> \
+        --what k8_first,k8_first_nopad,k10_first,k10_first_nopad
 
-Copies ``lstm.cu`` and ``blockfb.cu`` from ``--src`` (default: the port's
+Copies ``lstm.cu``, ``latfb.cu`` or ``blockfb.cu`` from ``--src`` (default: the port's
 ``pykaldi2_tpu_torch/csrc``) into ``--out``, inserts stamps at fixed lines
 of the kernel (thread 0 of every CTA adds the cycles since its previous
 stamp to one of a few buckets in a ``__device__`` array, and counts the
@@ -22,7 +24,19 @@ Kernels and shapes:
        direction), cycles a step per CTA;
   k9   ``smbr_fwd_kernel`` on chip_smoke's ``padded_lattice`` (B=32, T=448,
        K=256, A=512, ~74% of the band live arcs, padding at slot 0), cycles
-       a frame per CTA;
+       a frame per CTA, buckets: ring wait + barrier 0, pass 1, barrier 1,
+       block max, pass 2 (atomics), barrier 2, slot pass, barrier 3, blend
+       and stores, inactive frames;
+  k8, k10  ``band_bwd_kernel<false>`` / ``<true>`` on the same band, fed the
+       plain forwards' residuals, cycles a frame per CTA, k9's buckets with
+       the ring wait (and the loop's top) apart from barrier 0 (pass 1 also
+       stores gamma or the contributions; inactive frames write 0s);
+  k8_first, k10_first  ``occupancies_bwd_kernel`` / ``smbr_bwd_kernel`` as in
+       commit 3c9d343, buckets: first pass (loads, scores), first
+       ``block_max``, arc pass (reloads, alpha_prev/aacc_prev gathers, store,
+       atomics), slot_logs (K10: with the ratios), blend; ``_nopad`` keeps
+       padding arcs out of the atomics (an experiment: an active frame of
+       padding only then differs);
   k6   ``lstmp_bwd_kernel`` at B=64, T=80, H=1024, P=512 (one BLSTMP layer
        direction), buckets: phase-1 staging, phase-1 mma, partial stores
        and dhp epilogue, barrier 1, phase-2 staging, phase-2 mma and gate
@@ -87,6 +101,40 @@ K9_FIRST = [
     ("if (tid == 0) norms[row] = norm;", "after+1", "PK2_STAMP(4);"),
 ]
 
+# K8 and K10's first design, as in commit 3c9d343 (K9_FIRST's loop shape, in reverse)
+K8_FIRST = [
+    ("float bnorm = 0.f;", "after", "PK2_T0;"),
+    ("lmax = fmaxf(lmax, (w[off + a] + obs[off + a]) + beta[dst[off + a]]);", "after",
+     "PK2_STAMP(0);"),
+    ("const float mx = fmaxf(block_max(lmax, red), kNegInf);", "after", "PK2_STAMP(1);"),
+    ("gamma[off + a] = act * expf(fminf(lg, 0.f));", "after+2", "PK2_STAMP(2);"),
+    ("const float m2 = slot_logs(sum, K, mx, red);", "after", "PK2_STAMP(3);"),
+    ("bnorm = bnorm + act * m2;", "after+1", "PK2_STAMP(4);"),
+]
+K10_FIRST = K8_FIRST[:3] + [
+    ("atomicAdd(&num[s], lin * (acc + bcd));", "after+2", "PK2_STAMP(2);"),
+] + K8_FIRST[4:]
+
+# the current K8 and K10, one template: the stamps run in the instantiation
+# that the wrapper launches
+BAND_BWD = [
+    ("float an_next = anorm_prev[static_cast<size_t>(T - 1) * B + b];", "after", "PK2_T0;"),
+    ("if (S > 0) ring.wait(pos.slot, pos.parity);  // position i's stage has landed", "after",
+     "PK2_STAMP(10);"),
+    ("__syncthreads();  // B0: ... in every thread, and the last frame's carries are final",
+     "after", "PK2_STAMP(0);"),
+    ("continue;", "before", "PK2_STAMP(9);"),
+    ("post_warp_max(lmax, red);", "after", "PK2_STAMP(1);"),
+    ("__syncthreads();  // B1: the posts are in; no thread reads this frame's stage again",
+     "after", "PK2_STAMP(2);"),
+    ("const float mx = fmaxf(read_block_max(red), kNegInf);", "after", "PK2_STAMP(3);"),
+    ("__syncthreads();  // B2: every arc is in its slot", "before", "PK2_STAMP(4);"),
+    ("__syncthreads();  // B2: every arc is in its slot", "after", "PK2_STAMP(5);"),
+    ("post_warp_max(lm, red);", "after", "PK2_STAMP(6);"),
+    ("__syncthreads();  // B3: the slots' maxima are in", "after", "PK2_STAMP(7);"),
+    ("bnorm = bnorm + act * m2;", "after", "PK2_STAMP(8);"),
+]
+
 SPECS = {
     "k6": ("lstmp_bwd_kernel(const float* __restrict__ dys", [
         ("float dc_r[4] = {0.f, 0.f, 0.f, 0.f};", "after", "PK2_T0;"),
@@ -142,6 +190,8 @@ SPECS = {
         ("__syncthreads();  // B3: the slots' maxima are in", "after", "PK2_STAMP(7);"),
         ("if (tid == 0) norms[row] = norm;", "after", "PK2_STAMP(8);"),
     ]),
+    "k8": ("__global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(", BAND_BWD),
+    "k10": ("__global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(", BAND_BWD),
     "k6_first": ("lstmp_bwd_kernel(const float* __restrict__ dys", [
         ("for (int i = 0; i < MAX_PAIRS; ++i) dc_r[i] = 0.f;", "after", "PK2_T0;"),
         ("stage_owned(Xs, ldd, dgbuf + kc, H4, role, nb, kw);", "after+1", "PK2_STAMP(0);"),
@@ -173,6 +223,20 @@ SPECS = {
         ("atomicAdd(&num[d], lin * acc_in);", "after", "}"),
         ("__syncthreads();", "after", "PK2_STAMP(2);"),
     ] + K9_FIRST[4:]),
+    "k8_first": ("__global__ void __launch_bounds__(kThreads) occupancies_bwd_kernel(", K8_FIRST),
+    # padding arcs kept out of the atomic (an experiment, as k9_first_nopad)
+    "k8_first_nopad": ("__global__ void __launch_bounds__(kThreads) occupancies_bwd_kernel(",
+                       K8_FIRST[:3] + [
+        ("atomicAdd(&sum[s], expf(ow + bd - mx));", "before",
+         "if (w[off + a] > 0.5f * kNegInf)"),
+    ] + K8_FIRST[3:]),
+    "k10_first": ("__global__ void __launch_bounds__(kThreads) smbr_bwd_kernel(", K10_FIRST),
+    "k10_first_nopad": ("__global__ void __launch_bounds__(kThreads) smbr_bwd_kernel(",
+                        K10_FIRST[:3] + [
+        ("atomicAdd(&sum[s], lin);", "before", "if (lin != 0.f) {"),
+        ("atomicAdd(&num[s], lin * (acc + bcd));", "after", "}"),
+        ("__syncthreads();", "after", "PK2_STAMP(2);"),
+    ] + K10_FIRST[4:]),
     "k11_first": ("__global__ void __launch_bounds__(kThreads) block_matvec_kernel(", [
         ("__shared__ int last;", "after", "PK2_T0;"),
         ("cp_async_commit();", "after", "PK2_STAMP(0);"),
@@ -193,12 +257,28 @@ BUCKETS = {
            "block max", "pass 2 (atomics)", "barrier 2",
            "slot pass (ratio, log, warp max)", "barrier 3", "blend + stores",
            "inactive frame (carries out)"],
+    "k8": ["barrier 0", "pass 1 (scores, gamma out, warp max)", "barrier 1",
+           "block max", "pass 2 (atomics)", "barrier 2", "slot pass (log, warp max)",
+           "barrier 3", "blend", "inactive frame (zeros out)", "loop top + ring wait"],
+    "k10": ["barrier 0", "pass 1 (scores, contributions out, warp max)",
+            "barrier 1", "block max", "pass 2 (atomics)", "barrier 2",
+            "slot pass (ratio, log, warp max)", "barrier 3", "blend",
+            "inactive frame (zeros out)", "loop top + ring wait"],
     "k5_first": ["staging hp", "gate product", "gate math (xp loaded)", "barrier 1",
                  "staging h_full", "projection + partial sums", "barrier 2"],
     "k9_first": ["first pass (loads, scores)", "first block_max", "atomic pass",
                  "ratios + slot_logs", "blend + stores"],
     "k9_first_nopad": ["first pass (loads, scores)", "first block_max",
                        "atomic pass, padding left out", "ratios + slot_logs", "blend + stores"],
+    "k8_first": ["first pass (loads, scores)", "first block_max",
+                 "arc pass (reloads, gathers, stores, atomics)", "slot_logs", "blend"],
+    "k8_first_nopad": ["first pass (loads, scores)", "first block_max",
+                       "arc pass, padding left out", "slot_logs", "blend"],
+    "k10_first": ["first pass (loads, scores)", "first block_max",
+                  "arc pass (reloads, gathers, stores, atomics)", "ratios + slot_logs",
+                  "blend"],
+    "k10_first_nopad": ["first pass (loads, scores)", "first block_max",
+                        "arc pass, padding left out", "ratios + slot_logs", "blend"],
     "k6": ["per-frame loads issued", "phase-1 product (staging + mma)", "phase-1 plane sum",
            "cluster barrier", "DSMEM pull + dhp epilogue", "barrier 1",
            "phase-2 product (staging + mma)", "phase-2 plane sum", "gate math", "barrier 2"],
@@ -235,7 +315,8 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
     """The kernel's library built from ``src_dir``, with the stamps or without."""
     from pykaldi2_tpu_torch import device as D
 
-    name = {"k5": "lstm", "k6": "lstm", "k9": "latfb"}.get(what.split("_")[0], "blockfb")
+    name = {"k5": "lstm", "k6": "lstm", "k8": "latfb", "k9": "latfb",
+            "k10": "latfb"}.get(what.split("_")[0], "blockfb")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(src_dir, f"{name}.cu")) as f:
         text = f.read()
@@ -257,9 +338,11 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
         out.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         out.pk2_lstmp_bwd.restype = ci
         out._pk2_typed = True
-    elif name == "latfb":  # the entry points K9's wrapper calls, in every version
-        out.pk2_latfb_smbr_fwd.argtypes = [vp] * 9 + [ci] * 4 + [vp]
-        out.pk2_latfb_smbr_fwd.restype = ci
+    elif name == "latfb":  # the entry points K8's, K9's and K10's wrappers call, in every version
+        for fn, n_ptr in (("pk2_latfb_occupancies_bwd", 10), ("pk2_latfb_smbr_fwd", 9),
+                          ("pk2_latfb_smbr_bwd", 13)):
+            getattr(out, fn).argtypes = [vp] * n_ptr + [ci] * 4 + [vp]
+            getattr(out, fn).restype = ci
         out.pk2_latfb_max_slots.argtypes = [ci]
         out.pk2_latfb_max_slots.restype = ci
         out._pk2_typed = True
@@ -333,7 +416,7 @@ def run_k5(what: str, src: str, out: str, calls: int = 5):
           f"(cycles per CTA over the event time)", flush=True)
 
 
-def run_k9(what: str, src: str, out: str, calls: int = 3):
+def run_latfb(what: str, src: str, out: str, calls: int = 3):
     import torch
 
     import chip_smoke as C
@@ -348,7 +431,15 @@ def run_k9(what: str, src: str, out: str, calls: int = 3):
     band = FL._band(obs, lat)
     active = FL._active_ts(t, nf)
     arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
-    fn = lambda: KC.smbr_fwd(*band, active, arc_acc, k)  # noqa: E731
+    kernel = what.split("_")[0]
+    if kernel == "k9":
+        fn = lambda: KC.smbr_fwd(*band, active, arc_acc, k)  # noqa: E731
+    else:  # the backward kernels take the plain forwards' residuals
+        args8, args10 = C.latfb_bwd_args(band, active, arc_acc, lat,
+                                         KC.logz_fwd_plain(*band, active, k),
+                                         KC.smbr_fwd_plain(*band, active, arc_acc, k))
+        fn = ((lambda: KC.occupancies_bwd(*args8)) if kernel == "k8"
+              else (lambda: KC.smbr_contribs_bwd(*args10)))
     base = D._LIBS.get("latfb")
     D._LIBS["latfb"] = build(src, out, what, stamped=False)
     ms = C.timed(fn, n=10)
@@ -445,7 +536,7 @@ def run_k11(what: str, src: str, out: str, calls: int = 20):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "pykaldi2_tpu_torch", "csrc"))
-    ap.add_argument("--what", default="k5,k6,k9,k11")
+    ap.add_argument("--what", default="k5,k6,k8,k9,k10,k11")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "split"))
     args = ap.parse_args(argv)
     import torch
@@ -459,7 +550,8 @@ def main(argv=None) -> int:
     print(f"card: {smi.stdout.strip()}", flush=True)
     D.build_all()
     for what in args.what.split(","):
-        run = {"k5": run_k5, "k6": run_k6, "k9": run_k9}.get(what.split("_")[0], run_k11)
+        run = {"k5": run_k5, "k6": run_k6, "k8": run_latfb, "k9": run_latfb,
+               "k10": run_latfb}.get(what.split("_")[0], run_k11)
         run(what, args.src, args.out)
     return 0
 
