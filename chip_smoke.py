@@ -8,13 +8,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. hold each kernel against its plain PyTorch version at the flagship
      shapes (B=64 rows of 80-frame chunks, 80 fbank bins, H=1024), with the
      tolerances below, and time kernel, plain version and library call;
+     K1 and K4 also on one 1,230-frame utterance (the feature CLIs' launch;
+     both shapes timed), on 8 kHz audio without snip edges and on 32 kHz
+     audio (a row tile's columns split over two CTAs), each called twice
+     and required equal bit for bit;
      K4 for Kaldi's mfcc_hires options and its 13-cepstra default, K5/K6 at
      the BLSTMP shapes (P=512) in both directions, also at H=256, P=128
      (B=70: two launches) and H=P=1024, each K5 and K6 call made twice and
      the two required equal bit for bit; K7-K10 likewise on the
      probe lattice of bench.py:626-647 (B=32, T=448, K=A=256, 8952 pdfs);
      then K7-K10 on a band packed as pack_time_sync packs it (padding arcs
-     at slot 0, inactive frames, an active frame of padding only);
+     at slot 0, inactive frames, an active frame of padding only), on bands
+     that take no ring (A=250; K=14,520, where K7 still takes one) or read
+     arcs past it (A=2,560), and K7 at its cap of 29,048 slots;
      K2/K3 also at B in {16, 32, 64, 70} x H in {1024, 64, 48} with padded
      rows, each called twice on the same inputs, which must agree bit for
      bit; then a small BLSTM's and a small BLSTMP's outputs and gradients on
@@ -91,6 +97,9 @@ MFCC_HIRES = {"num_ceps": 40, "use_energy": False,
               "mel_opts": {"num_bins": 40, "low_freq": 20.0, "high_freq": -400.0}}
 MFCC_DEFAULT = {"num_ceps": 13, "use_energy": True, "mel_opts": {"num_bins": 23}}
 FRAMES_PER_UTT = 1230.0  # LibriSpeech-960 mean utterance length (bench.py:36)
+# K1/K4 launch shapes (utterances x frames): the CE batch of 64 80-frame
+# chunks, and one mean-length utterance as the feature CLIs launch it
+FRONT_SHAPES = ((B, T), (1, int(FRAMES_PER_UTT)))
 # kernel vs plain: fp32 summation order (+ one bf16 ulp for the saved gates);
 # card vs CPU: cuBLAS bf16 GEMMs against exact-product emulation, through
 # layers whose bf16 rounding of h can flip on a tie
@@ -190,38 +199,130 @@ def check(name: str, got, want, tol: float) -> float:
     return err
 
 
+def fbank_opts(bins: int = BINS, **frame):
+    """Fbank options with dither 0 (and ``frame``'s frame options), by
+    default the flagship's 80 bins."""
+    from pykaldi2_tpu_torch.config import FbankOpts, FrameOpts, MelOpts
+
+    return FbankOpts(frame_opts=FrameOpts(dither=0.0, **frame), mel_opts=MelOpts(num_bins=bins))
+
+
+def front_wave(rng, b: int, t: int, fo, dev):
+    """[b, S] random fp32 audio on ``dev`` whose snip-edges framing gives t frames."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.data.dataloader import chunk_samples
+
+    return torch.tensor((rng.randn(b, chunk_samples(t, fo)) * 4000).astype(np.float32),
+                        device=dev)
+
+
+# a K1/K4 option set beside the recipe's: 8 kHz audio framed without snip
+# edges under the povey window (W=200, K=128), 3 utterances of 123 frames,
+# a row count (369) that no tile size divides
+FRONT_8K = {"samp_freq": 8000.0, "snip_edges": False, "window_type": "povey"}
+# and 32 kHz audio (W=800, K=512: two CTAs split a row tile's columns and
+# exchange its spectrum), 2 utterances of 100 frames
+FRONT_32K = {"samp_freq": 32000.0}
+
+
+def raw_wave(dev, seed: int, b: int, s: int):
+    """[b, s] random fp32 audio on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return torch.tensor((rng.randn(b, s) * 4000).astype(np.float32), device=dev)
+
+
+def front_compare(what: str, fn, plain, opts, wave, tol: float) -> float:
+    """K1 or K4 (``fn``) against its plain version on one input; a second
+    call on the same input must give the same bits (fixed-order sums, no
+    atomics). Returns the max abs error."""
+    import torch
+
+    got = fn(wave, opts)
+    again = fn(wave, opts)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{what}: two calls on the same input differ")
+    return check(what, got, plain(wave, opts), tol)
+
+
+def front_shapes(what: str, fn, plain, opts, rng, dev, tol: float, time_it: bool = True):
+    """K1 or K4 at each of FRONT_SHAPES (the first from ``rng``, the rest
+    from a fixed seed): compared, and with ``time_it`` timed beside the
+    plain version and the bound, one line a shape with the tile the host
+    picked. Returns the CE batch's row fields."""
+    import numpy as np
+
+    from pykaldi2_tpu_torch.config import MfccOpts
+    from pykaldi2_tpu_torch.frontend import fused as F
+
+    fo, mfcc = opts.frame_opts, isinstance(opts, MfccOpts)
+    m, ceps = opts.mel_opts.num_bins, (opts.num_ceps if mfcc else 0)
+    w, k = fo.window_size, fo.padded_window_size // 2
+    row, extra = {}, np.random.RandomState(7)
+    for b, t in FRONT_SHAPES:
+        wave = front_wave(rng if not row else extra, b, t, fo, dev)
+        label = f"{what} B={b} x {t} frames"
+        err = front_compare(label, fn, plain, opts, wave, tol)
+        if not time_it:
+            row = row or {"max_abs_err": err}
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            continue
+        # the bound charges the work the function needs: the DFT over the W
+        # real samples and K bins, the mel product over each filter's
+        # nonzero bins, K4's DCT; the waveform, the tables the kernel reads
+        # and the output, each once
+        win, cs, melw, band, dct_t, _, _ = F._kernel_tables(opts, dev)
+        tables = [x for x in (win, cs, melw, band, dct_t) if x is not None]
+        nrows = b * t
+        flops = 2 * nrows * w * k * 2 + 2 * nrows * melw.numel() + 2 * nrows * m * ceps
+        nbytes = 4 * (wave.numel() + sum(x.numel() for x in tables) + nrows * (ceps or m))
+        bms, by = bound_ms(nbytes, [(flops, FP32_FLOPS)])
+        # ms as a caller pays it (eager calls, the wrapper's host work
+        # included: the feature CLIs launch one utterance at a time), and the
+        # device's time alone from a CUDA graph
+        ms, device_ms = timed(lambda: fn(wave, opts)), timed_graph(lambda: fn(wave, opts))
+        plain_ms = timed(lambda: plain(wave, opts))
+        r, cl, cm, rt = F.kernel_tile(nrows, opts, mfcc)
+        print(f"kernel {label}: {ms:.4f} ms (CUDA events over 20 calls; device {device_ms:.4f} "
+              f"ms from a CUDA graph of 50) | plain {plain_ms:.4f} ms | bound {bms:.4f} ms "
+              f"({by}) | tiles of {rt} rows ({r} a thread), {cl} CTA(s) a tile, {cm} tile(s) "
+              f"a table stream, {-(-(-(-nrows // rt)) // cm) * cm * cl} CTAs", flush=True)
+        if not row:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return row
+
+
 def kernel_checks(dev):
     """Phase 2: each kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
 
-    from pykaldi2_tpu_torch.config import FbankOpts, FrameOpts, MelOpts
-    from pykaldi2_tpu_torch.data.dataloader import chunk_samples
     from pykaldi2_tpu_torch.frontend import fused as F
     from pykaldi2_tpu_torch.ops import lstm_cuda as L
 
     rng = np.random.RandomState(0)
     rows = {}
 
-    # K1: fused fbank on a batch of 64 raw 80-frame chunks
-    opts = FbankOpts(frame_opts=FrameOpts(dither=0.0), mel_opts=MelOpts(num_bins=BINS))
-    fo = opts.frame_opts
-    s = chunk_samples(T, fo)
-    wave = torch.tensor((rng.randn(B, s) * 4000).astype(np.float32), device=dev)
-    got = F.fused_fbank(wave, opts)
-    torch.cuda.synchronize()
-    err = check("K1 fbank", got, F.fused_fbank_plain(wave, opts), TOL["fbank"])
-    w, k = fo.window_size, fo.padded_window_size // 2
-    nrows = B * T
-    flops = 2 * nrows * w * k * 2 + 2 * nrows * k * BINS
-    nbytes = 4 * (B * s + T * w + w + 2 * w * k + k * BINS + nrows * BINS)
-    bms, by = bound_ms(nbytes, [(flops, FP32_FLOPS)])
+    # K1: fused fbank on a batch of 64 raw 80-frame chunks and on one
+    # mean-length utterance; then 8 kHz audio without snip edges, and 32 kHz
+    row = front_shapes("K1 fbank", F.fused_fbank, F.fused_fbank_plain, fbank_opts(), rng, dev,
+                       TOL["fbank"])
+    err = max(front_compare("K1 fbank, 8 kHz, no snip edges, 23 bins", F.fused_fbank,
+                            F.fused_fbank_plain, fbank_opts(23, **FRONT_8K),
+                            raw_wave(dev, 8, 3, 9841), TOL["fbank"]),
+              front_compare("K1 fbank, 32 kHz, 80 bins", F.fused_fbank, F.fused_fbank_plain,
+                            fbank_opts(**FRONT_32K), raw_wave(dev, 9, 2, 99 * 320 + 800),
+                            TOL["fbank"]))
     rows["fbank"] = dict(
         name="fbank", route="cuda", source="pykaldi2_tpu_torch/csrc/fbank.cu",
-        replaces="pykaldi2_tpu/frontend/fused.py:38", max_abs_err=err,
-        ms=timed(lambda: F.fused_fbank(wave, opts)),
-        plain_ms=timed(lambda: F.fused_fbank_plain(wave, opts)),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        replaces="pykaldi2_tpu/frontend/fused.py:38",
+        **dict(row, max_abs_err=max(row["max_abs_err"], err)), library_ms=None)
 
     # K2: LSTM forward over one (layer, direction) at B=64, T=80, H=1024
     xp = torch.tensor((rng.randn(T, B, 4 * H) * 0.5).astype(np.float32), device=dev)
@@ -324,48 +425,41 @@ def lstm_shape_checks(dev, t_len: int = 24) -> None:
               f"K3 {h // 16} CTAs in clusters of {k3}", flush=True)
 
 
-def mfcc_opts(spec: dict):
-    """MfccOpts with dither 0 from one of the option sets above."""
+def mfcc_opts(spec: dict, **frame):
+    """MfccOpts with dither 0 (and ``frame``'s frame options) from one of the
+    option sets above."""
     from pykaldi2_tpu_torch.config import FrameOpts, MelOpts, MfccOpts
 
     spec = dict(spec)
-    return MfccOpts(frame_opts=FrameOpts(dither=0.0), mel_opts=MelOpts(**spec.pop("mel_opts")),
-                    **spec)
+    return MfccOpts(frame_opts=FrameOpts(dither=0.0, **frame),
+                    mel_opts=MelOpts(**spec.pop("mel_opts")), **spec)
 
 
 def mfcc_checks(dev) -> dict:
-    """Phase 2, K4: fused MFCC against its plain version on 64 raw 80-frame
-    chunks, for the hires and the 13-cepstra-with-energy options; the row
-    (times, bound) is the hires one, the error the larger of the two."""
+    """Phase 2, K4: fused MFCC against its plain version for the hires and
+    the 13-cepstra-with-energy options at FRONT_SHAPES, the former on
+    FRONT_32K's audio and the latter on FRONT_8K's; the row (times, bound)
+    is the hires one on the CE batch, the error the largest of all."""
     import numpy as np
-    import torch
 
-    from pykaldi2_tpu_torch.data.dataloader import chunk_samples
     from pykaldi2_tpu_torch.frontend import fused as F
 
     rng = np.random.RandomState(5)
-    errs, row = [], None
-    for label, spec in (("hires 40/40", MFCC_HIRES), ("13/23 + energy", MFCC_DEFAULT)):
-        opts = mfcc_opts(spec)
-        fo = opts.frame_opts
-        s = chunk_samples(T, fo)
-        wave = torch.tensor((rng.randn(B, s) * 4000).astype(np.float32), device=dev)
-        got = F.fused_mfcc(wave, opts)
-        torch.cuda.synchronize()
-        errs.append(check(f"K4 mfcc {label}", got, F.fused_mfcc_plain(wave, opts), TOL["mfcc"]))
-        if row is None:
-            w, k = fo.window_size, fo.padded_window_size // 2
-            m, c, nrows = opts.mel_opts.num_bins, opts.num_ceps, B * T
-            flops = 2 * nrows * w * k * 2 + 2 * nrows * k * m + 2 * nrows * m * c
-            nbytes = 4 * (B * s + T * w + w + 2 * w * k + k * m + m * c + nrows * c)
-            bms, by = bound_ms(nbytes, [(flops, FP32_FLOPS)])
-            row = dict(name="mfcc", route="cuda", source="pykaldi2_tpu_torch/csrc/fbank.cu",
-                       replaces="pykaldi2_tpu/frontend/fused.py:125",
-                       ms=timed(lambda: F.fused_mfcc(wave, opts)),
-                       plain_ms=timed(lambda: F.fused_mfcc_plain(wave, opts)),
-                       bound_ms=bms, bound_by=by, library_ms=None)
-    row["max_abs_err"] = max(errs)
-    return {"mfcc": row}
+    row = front_shapes("K4 mfcc hires 40/40", F.fused_mfcc, F.fused_mfcc_plain,
+                       mfcc_opts(MFCC_HIRES), rng, dev, TOL["mfcc"])
+    err = front_shapes("K4 mfcc 13/23 + energy", F.fused_mfcc, F.fused_mfcc_plain,
+                       mfcc_opts(MFCC_DEFAULT), rng, dev, TOL["mfcc"],
+                       time_it=False)["max_abs_err"]
+    err8 = max(front_compare("K4 mfcc hires, 32 kHz", F.fused_mfcc, F.fused_mfcc_plain,
+                             mfcc_opts(MFCC_HIRES, **FRONT_32K),
+                             raw_wave(dev, 9, 2, 99 * 320 + 800), TOL["mfcc"]),
+               front_compare("K4 mfcc 13/23 + energy, 8 kHz, no snip edges", F.fused_mfcc,
+                             F.fused_mfcc_plain, mfcc_opts(MFCC_DEFAULT, **FRONT_8K),
+                             raw_wave(dev, 8, 3, 9841), TOL["mfcc"]))
+    return {"mfcc": dict(name="mfcc", route="cuda", source="pykaldi2_tpu_torch/csrc/fbank.cu",
+                         replaces="pykaldi2_tpu/frontend/fused.py:125",
+                         **dict(row, max_abs_err=max(row["max_abs_err"], err, err8)),
+                         library_ms=None)}
 
 
 def lstmp_checks(dev) -> dict:
@@ -625,12 +719,12 @@ def latfb_compare(dev, label: str, obs, lat, nf, ref, rows=None) -> dict:
     active = FL._active_ts(t, nf)
     arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
     live = float(((band[3] > 0.5 * NEG_INF) * active).sum()) / (t * b * a)
-    rings = {"K8": KC.bwd_ring(a, k, False), "K9": KC.smbr_fwd_ring(a, k),
-             "K10": KC.bwd_ring(a, k, True)}
+    rings = {"K7": KC.logz_fwd_ring(a, k), "K8": KC.bwd_ring(a, k, False),
+             "K9": KC.smbr_fwd_ring(a, k), "K10": KC.bwd_ring(a, k, True)}
     print(f"latfb {label}: B={b} T={t} K={k} A={a}, {live:.1%} of the band is live arcs in "
           f"active frames; rings: " + ", ".join(f"{kno} {s} stages of {c} arcs"
                                                 for kno, (s, c) in rings.items()), flush=True)
-    for kno in ("K8", "K10"):  # a training band takes the ring
+    for kno in ("K7", "K8", "K9", "K10"):  # a training band takes the ring
         if rings[kno][0] < 2:
             fail(f"{kno} {label}: no ring at K={k}, A={a}")
 
@@ -642,13 +736,7 @@ def latfb_compare(dev, label: str, obs, lat, nf, ref, rows=None) -> dict:
     calls, errs = {}, {}
     calls["latfb_logz_fwd"] = (lambda: KC.logz_fwd(*band, active, k),
                                lambda: KC.logz_fwd_plain(*band, active, k))
-    (ga, gn), (wa, wn) = run(*calls["latfb_logz_fwd"])
-
-    errs["latfb_logz_fwd"] = max(
-        close_log(f"K7 {label} alphas", ga, wa),
-        close(f"K7 {label} norms", gn, wn, LAT_TOL["log"], LAT_TOL["log"]),
-        close(f"K7 {label} logZ", lat_logz(ga, gn, lat.final), lat_logz(wa, wn, lat.final),
-              LAT_TOL["log"], LAT_TOL["log"]))
+    errs["latfb_logz_fwd"], (wa, wn) = logz_fwd_compare(f"K7 {label}", band, active, lat)
 
     calls["latfb_smbr_fwd"] = (lambda: KC.smbr_fwd(*band, active, arc_acc, k),
                                lambda: KC.smbr_fwd_plain(*band, active, arc_acc, k))
@@ -708,13 +796,14 @@ def latfb_probe(dev) -> dict:
 
 def latfb_padded(dev) -> dict:
     """Phase 2, K7-K10 on ``padded_lattice``: padding arcs at slot 0,
-    inactive frames and an active frame of padding only, the paths K8-K10
-    skip around; then K8-K10 with no ring, reading the band from global
+    inactive frames and an active frame of padding only, the paths K7-K10
+    skip around; then K7-K10 with no ring, reading the band from global
     memory: a band of 250 arcs a frame (not a multiple of 4, so no bulk
     copies) and one of K=14,520 slots (no room for two stages), whose
-    sources at each frame are the slots the frame before reached; and a
-    band of 2,560 arcs a frame (the padded band's arcs five times over),
-    whose arcs past the ring's 2,048 are read from global memory. K8 and
+    sources at each frame are the slots the frame before reached; a band
+    of 2,560 arcs a frame (the padded band's arcs five times over), whose
+    arcs past the ring's 2,048 are read from global memory; and K7 alone at
+    its cap of 29,048 slots (4 frames, no ring). K8 and
     K10 take the A=250 band's first 160 frames (its utterances ending 288
     frames earlier): over all 448 frames its log Z reaches -360, and there
     fp32 cannot resolve gamma to LAT_TOL (the plain version is 2.3x LAT_TOL
@@ -723,41 +812,34 @@ def latfb_padded(dev) -> dict:
 
     from pykaldi2_tpu_torch.ops import fb_lattice as FL
     from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
-    from pykaldi2_tpu_torch.ops.fb import NEG_INF
 
     obs, lat, nf, ref = padded_lattice(dev)
     errs = latfb_compare(dev, "packed padding", obs, lat, nf, ref)
     cut = FL.TimeSyncLattice(*(x[:, :, :250].contiguous() for x in lat[:4]), lat.final)
-    gen = torch.Generator(device=dev).manual_seed(5)
     t, b, k, a = 8, 2, 14520, 64
-    wide = FL.TimeSyncLattice(
-        src=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
-        dst=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
-        pdf=torch.randint(0, obs.shape[2], (b, t, a), generator=gen, device=dev,
-                          dtype=torch.int32),
-        weight=torch.randn(b, t, a, generator=gen, device=dev),
-        final=torch.full((b, k), NEG_INF, device=dev))
-    wide.src[:, 0] = 0
-    for f in range(1, t):
-        wide.src[:, f] = wide.dst[:, f - 1, torch.randperm(a, generator=gen, device=dev)]
-    wide.final.scatter_(1, wide.dst[:, -1].long(), 0.0)
+    wide = chained_lattice(dev, t, b, k, a, obs.shape[2], seed=5)
     dup = FL.TimeSyncLattice(*(x[:b, :16].repeat(1, 1, 5) for x in lat[:4]), lat.final[:b])
-    for label, o, lt, n, rf, ring, bwd_frames in (
-            ("A=250", obs, cut, nf, ref, False, 160),
-            ("K=14520", obs[:b, :t], wide, nf[:b].clamp(max=t), ref[:b, :t], False, t),
+    # the kernels that take a ring on each band: K7, with two [K] buffers,
+    # still has room for one at K=14,520
+    for label, o, lt, n, rf, ringed, bwd_frames in (
+            ("A=250", obs, cut, nf, ref, (), 160),
+            ("K=14520", obs[:b, :t], wide, nf[:b].clamp(max=t), ref[:b, :t], ("K7",), t),
             ("A=2560", obs[:b, :16], dup, torch.tensor([16, 12], dtype=torch.int32, device=dev),
-             ref[:b, :16], True, 16)):
+             ref[:b, :16], ("K7", "K8", "K9", "K10"), 16)):
         band = FL._band(o, lt)
         active = FL._active_ts(o.shape[1], n)
         arc_acc = FL._arc_acc_ts(lt, rf, "pdf", None, None)
         kk, aa = lt.num_slots, lt.src.shape[2]
-        rings = {"K8": KC.bwd_ring(aa, kk, False), "K9": KC.smbr_fwd_ring(aa, kk),
-                 "K10": KC.bwd_ring(aa, kk, True)}
+        rings = {"K7": KC.logz_fwd_ring(aa, kk), "K8": KC.bwd_ring(aa, kk, False),
+                 "K9": KC.smbr_fwd_ring(aa, kk), "K10": KC.bwd_ring(aa, kk, True)}
         for kno, (stages, chunk) in rings.items():
-            if (stages >= 2) != ring:
+            if (stages >= 2) != (kno in ringed):
                 fail(f"{kno} {label}: {stages} stages of {chunk} arcs, expected "
-                     f"{'a ring' if ring else 'none'}")
-        label = f"{label} ({'ring' if ring else 'no ring'})"
+                     f"{'a ring' if kno in ringed else 'none'}")
+        k7_label = f"K7 {label} ({'ring' if 'K7' in ringed else 'no ring'})"
+        label = f"{label} ({'ring' if 'K9' in ringed else 'no ring'})"
+        errs["latfb_logz_fwd"] = max(errs["latfb_logz_fwd"],
+                                     logz_fwd_compare(k7_label, band, active, lt)[0])
         got = KC.smbr_fwd(*band, active, arc_acc, kk)
         torch.cuda.synchronize()
         sfwd = KC.smbr_fwd_plain(*band, active, arc_acc, kk)
@@ -783,7 +865,56 @@ def latfb_padded(dev) -> dict:
                                     lambda: KC.smbr_contribs_bwd_plain(*args10))}
         for name, err in latfb_bwd_checks(label, calls, args10[-1]).items():
             errs[name] = max(errs[name], err)
+    # K7 at its own slot cap (two [K] buffers fill the CTA's shared memory;
+    # no ring), a few frames whose sources chain from the frame before
+    kmax = KC.max_slots(2)
+    top = chained_lattice(dev, t=4, b=2, k=kmax, a=64, pdfs=obs.shape[2], seed=6)
+    if KC.logz_fwd_ring(64, kmax) != (0, 0):
+        fail(f"K7 at K={kmax}: a ring was taken where two [K] buffers fill shared memory")
+    band = FL._band(obs[:2, :4], top)
+    errs["latfb_logz_fwd"] = max(errs["latfb_logz_fwd"], logz_fwd_compare(
+        f"K7 K={kmax} (no ring)", band, FL._active_ts(4, nf[:2].clamp(max=4)), top)[0])
     return errs
+
+
+def chained_lattice(dev, t: int, b: int, k: int, a: int, pdfs: int, seed: int):
+    """A random band of K slots whose sources at each frame are slots the
+    frame before reached (so few slots die), frame 0 leaving slot 0, and a
+    final weight of 0 on the last frame's destinations."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lat = FL.TimeSyncLattice(
+        src=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
+        dst=torch.randint(0, k, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
+        pdf=torch.randint(0, pdfs, (b, t, a), generator=gen, device=dev, dtype=torch.int32),
+        weight=torch.randn(b, t, a, generator=gen, device=dev),
+        final=torch.full((b, k), NEG_INF, device=dev))
+    lat.src[:, 0] = 0
+    for f in range(1, t):
+        lat.src[:, f] = lat.dst[:, f - 1, torch.randperm(a, generator=gen, device=dev)]
+    lat.final.scatter_(1, lat.dst[:, -1].long(), 0.0)
+    return lat
+
+
+def logz_fwd_compare(what: str, band, active, lat) -> tuple:
+    """K7 against its plain version on one band: alphas, norms and log Z.
+    Returns (max abs error, the plain version's (alphas, norms))."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
+
+    k = lat.num_slots
+    got = KC.logz_fwd(*band, active, k)
+    torch.cuda.synchronize()
+    want = KC.logz_fwd_plain(*band, active, k)
+    return max(close_log(f"{what} alphas", got[0], want[0]),
+               close(f"{what} norms", got[1], want[1], LAT_TOL["log"], LAT_TOL["log"]),
+               close(f"{what} logZ", lat_logz(*got, lat.final), lat_logz(*want, lat.final),
+                     LAT_TOL["log"], LAT_TOL["log"])), want
 
 
 def padded_lattice(dev, seed: int = 1):

@@ -15,23 +15,20 @@
 // Design. Utterances are independent, so each CTA owns one utterance and
 // walks its T frames in a loop (in reverse for K8/K10): no grid barrier. The
 // [K] carries (alpha or beta, and the accuracy carry for K9/K10) and the
-// [K] segment-sum accumulators live in shared memory for all of T. K7 is
-// still the first design: per frame one pass over the A arcs computes the
-// scores and their block max; a second pass recomputes them (the band is
-// re-read from L1/L2, so A needs no shared memory), takes expf and adds each
-// arc into its destination slot with a shared-memory atomicAdd. Then one
-// pass over the K slots takes the guarded log, the renormalising max m2 and
-// the `active` blend. K8, K9 and K10 (below) stream the band through a
-// shared-memory ring instead and keep each arc's score in registers. The
-// Pallas kernels' one-hot matmul gather/scatter was a way around Mosaic and
-// is not carried over.
+// [K] segment-sum accumulators live in shared memory for all of T. All four
+// kernels stream the band through a shared-memory ring (cp.async.bulk on
+// mbarriers), keep each arc's score in registers from the max to the
+// scatter, need four barriers a frame and skip exact no-ops (zero-weight
+// arcs, inactive frames). K7 and K9 are one template, band_fwd_kernel<kAcc>;
+// K8 and K10 are band_bwd_kernel<kAcc>. The Pallas kernels' one-hot matmul
+// gather/scatter was a way around Mosaic and is not carried over.
 //
 // Bound. Each kernel reads its band once and writes its outputs once, so it
 // is bound by bytes, but at B=32 only 32 of the 132 SMs hold a CTA and each
 // frame is a chain of dependent block reductions: the kernels are latency
-// bound per frame. K8-K10 take that latency apart; K7 is still the first
-// design. Splitting the band of one utterance over a cluster of CTAs
-// (DSMEM) is the next lever; not done here.
+// bound per frame, and the design takes that latency apart. Splitting the
+// band of one utterance over a cluster of CTAs (DSMEM) is the next lever;
+// not done here.
 //
 // Numerics follow the reference exactly: NEG_INF = -1e30 with the
 // max(., NEG_INF) clamp, exp(min(log_gamma, 0)), the `denom > 0` guards,
@@ -51,70 +48,7 @@ constexpr int kWarps = kThreads / 32;
 // the opt-in shared-memory limit of a Hopper CTA
 constexpr int kMaxSmemBytes = 232448;
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, red[i]);
-  __syncthreads();  // red is rewritten by the next call
-  return r;
-}
-
 __device__ __forceinline__ float log_safe(float x) { return x > 0.f ? logf(x) : kNegInf; }
-
-// new carry of the log recursion, stashed unnormalised in acc[k]; returns its max m2
-__device__ __forceinline__ float slot_logs(float* acc, int K, float mx, float* red) {
-  float lm = -INFINITY;
-  for (int k = threadIdx.x; k < K; k += kThreads) {
-    const float v = log_safe(acc[k]) + mx;
-    acc[k] = v;
-    lm = fmaxf(lm, v);
-  }
-  return block_max(lm, red);
-}
-
-// K7
-__global__ void __launch_bounds__(kThreads) logz_fwd_kernel(
-    const float* __restrict__ obs, const int* __restrict__ src, const int* __restrict__ dst,
-    const float* __restrict__ w, const float* __restrict__ active,
-    float* __restrict__ alphas, float* __restrict__ norms, int T, int B, int A, int K) {
-  extern __shared__ float smem[];
-  float* alpha = smem;
-  float* sum = smem + K;
-  float* red = smem + 2 * K;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  for (int k = tid; k < K; k += kThreads) {
-    alpha[k] = k == 0 ? 0.f : kNegInf;
-    sum[k] = 0.f;
-  }
-  __syncthreads();
-  float norm = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const size_t row = static_cast<size_t>(t) * B + b;
-    const size_t off = row * A;
-    float lmax = -INFINITY;
-    for (int a = tid; a < A; a += kThreads)
-      lmax = fmaxf(lmax, alpha[src[off + a]] + w[off + a] + obs[off + a]);
-    const float mx = fmaxf(block_max(lmax, red), kNegInf);
-    for (int a = tid; a < A; a += kThreads) {
-      const float s = alpha[src[off + a]] + w[off + a] + obs[off + a];
-      atomicAdd(&sum[dst[off + a]], expf(s - mx));
-    }
-    __syncthreads();
-    const float m2 = slot_logs(sum, K, mx, red);
-    const float act = active[row];
-    for (int k = tid; k < K; k += kThreads) {
-      const float v = act * (sum[k] - m2) + (1.f - act) * alpha[k];
-      alpha[k] = v;
-      alphas[row * K + k] = v;
-      sum[k] = 0.f;
-    }
-    norm = norm + act * m2;
-    if (tid == 0) norms[row] = norm;
-    __syncthreads();
-  }
-}
 
 // expected-accuracy carry of the sMBR recursions: numer/denom, 0 where denom is 0
 __device__ __forceinline__ float acc_ratio(float numer, float denom) {
@@ -122,8 +56,8 @@ __device__ __forceinline__ float acc_ratio(float numer, float denom) {
 }
 
 // ---------------------------------------------------------------------------
-// K8, K9 and K10, redesigned for the H100. Still one CTA of kThreads per
-// utterance, but the frame's latency is taken apart:
+// K7-K10, redesigned for the H100. One CTA of kThreads per utterance; the
+// frame's latency is taken apart:
 // - the band streams into a shared-memory ring of S stages, frames ahead of
 //   the one that runs: one thread issues a frame's rows as cp.async.bulk
 //   copies that complete on the stage's mbarrier. A stage holds the frame's
@@ -145,7 +79,7 @@ __device__ __forceinline__ float acc_ratio(float numer, float denom) {
 //   out of the shared atomics: adding +0 changes no sum. An active frame of
 //   padding arcs only still adds exp(0) = 1 to slot 0, as the reference;
 // - an inactive frame (active == 0) does no arc work: the blend would keep
-//   the carries exactly (its new values are finite). K9 writes the carries
+//   the carries exactly (its new values are finite). K7 and K9 write the carries
 //   out; K8/K10 write 0 for every arc (the reference writes act * x, which
 //   is -0 where x < 0: equal by value).
 // Measured on an H100 80GB HBM3 at 700 W (tools/kernel_ab.py on
@@ -153,7 +87,9 @@ __device__ __forceinline__ float acc_ratio(float numer, float denom) {
 // and K10 2.97 → 0.96 ms a call against the first design (commit
 // 3c9d343's), K9 0.98 → 0.89 ms against that commit's ring; clock stamps
 // (tools/kernel_split.py) put most of a frame in pass 1 and pass 2 (~20%
-// each) and the slot pass (~16%). PERF.md has the splits.
+// each) and the slot pass (~16%). K7's first design (commit 714a141's)
+// spent 61% of its 8.0k cycles a frame in the atomic pass; PERF.md has the
+// splits and K7's times.
 // ---------------------------------------------------------------------------
 
 constexpr int kRegArcs = 4;  // arcs a thread keeps in registers in a frame
@@ -275,37 +211,42 @@ __device__ __forceinline__ float read_block_max(const float* red) {
   return v;
 }
 
-// K9
-__global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
+// K7 (kAcc = false): the alpha recursion and the cumulative norms. K9
+// (kAcc = true): alpha and the expected-accuracy carry aacc. The plain
+// versions: logz_fwd_plain and smbr_fwd_plain (ops/fb_lattice_cuda.py).
+template <bool kAcc>
+__global__ void __launch_bounds__(kThreads) band_fwd_kernel(
     const float* __restrict__ obs, const int* __restrict__ src, const int* __restrict__ dst,
     const float* __restrict__ w, const float* __restrict__ active,
     const float* __restrict__ arc_acc, float* __restrict__ alphas,
     float* __restrict__ aaccs, float* __restrict__ norms, int T, int B, int A, int K,
     int S, int ch) {
+  constexpr int kArcRows = kAcc ? 5 : 4;  // obs, w, src, dst (, arc_acc): ch words each
   extern __shared__ __align__(16) float ring_smem[];
   float* alpha = ring_smem;
-  float* aacc = ring_smem + K;
-  float* sum = ring_smem + 2 * K;
+  float* aacc = ring_smem + K;  // K9 only, as num
+  float* sum = ring_smem + (kAcc ? 2 : 1) * K;
   float* num = ring_smem + 3 * K;
-  float* red = ring_smem + 4 * K;
-  // S stages of obs, w, src, dst, arc_acc (ch words each, 16-byte aligned), S mbarriers
+  float* red = ring_smem + (kAcc ? 4 : 2) * K;
+  // S stages of the arc rows (ch words each, 16-byte aligned), S mbarriers
   float* ring_base = red + kWarps;
-  const BandRing ring{ring_base, reinterpret_cast<unsigned long long*>(ring_base + S * 5 * ch), S,
-                      5 * ch};
+  const BandRing ring{ring_base,
+                      reinterpret_cast<unsigned long long*>(ring_base + S * kArcRows * ch), S,
+                      kArcRows * ch};
   const int b = blockIdx.x, tid = threadIdx.x;
   const int nring = S > 0 ? ch : 0;
   const BandRows g{obs, w, src, dst, arc_acc, nullptr, nullptr};
   const size_t frame = static_cast<size_t>(B) * A;  // words from one frame's band to the next
   for (int k = tid; k < K; k += kThreads) {
     alpha[k] = k == 0 ? 0.f : kNegInf;
-    aacc[k] = 0.f;
+    if (kAcc) aacc[k] = 0.f;
     sum[k] = 0.f;
-    num[k] = 0.f;
+    if (kAcc) num[k] = 0.f;
   }
   ring.init();
   __syncthreads();
   for (int t = 0; t < S && t < T; ++t)
-    ring.fill<5, 0>(t, g, t * frame + static_cast<size_t>(b) * A, 0, ch, K);
+    ring.fill<kArcRows, 0>(t, g, t * frame + static_cast<size_t>(b) * A, 0, ch, K);
   float norm = 0.f;
   float act_next = active[b];
   RingPos pos{S - 1, 1u};
@@ -323,14 +264,14 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
     if (act == 0.f) {  // the blend keeps the carries: write them out, skip the arcs
       for (int k = tid; k < K; k += kThreads) {
         alphas[row * K + k] = alpha[k];
-        aaccs[row * K + k] = aacc[k];
+        if (kAcc) aaccs[row * K + k] = aacc[k];
       }
       if (tid == 0) norms[row] = norm;
       if (S > 0 && t + S < T)  // no one reads frame t's stage
-        ring.fill<5, 0>(pos.slot, g, off + S * frame, 0, ch, K);
+        ring.fill<kArcRows, 0>(pos.slot, g, off + S * frame, 0, ch, K);
       continue;
     }
-    // pass 1: scores and accuracies of this thread's arcs, and their max
+    // pass 1: scores (and accuracies) of this thread's arcs, and their max
     float sc[kRegArcs], ai[kRegArcs];
     int dd[kRegArcs];
     float lmax = -INFINITY;
@@ -339,22 +280,22 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
       const int a = tid + j * kThreads;
       if (a < A) {
         int s;
-        float o, ww, ac;
+        float o, ww, ac = 0.f;
         if (a < nring) {
           o = stage[a];
           ww = stage[ch + a];
           s = ssrc[a];
           dd[j] = sdst[a];
-          ac = stage[4 * ch + a];
+          if (kAcc) ac = stage[4 * ch + a];
         } else {
           o = obs[off + a];
           ww = w[off + a];
           s = src[off + a];
           dd[j] = dst[off + a];
-          ac = arc_acc[off + a];
+          if (kAcc) ac = arc_acc[off + a];
         }
         sc[j] = alpha[s] + ww + o;
-        ai[j] = aacc[s] + ac;
+        ai[j] = kAcc ? aacc[s] + ac : 0.f;
         lmax = fmaxf(lmax, sc[j]);
       }
     }
@@ -370,7 +311,7 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
         const float lin = expf(sc[j] - mx);
         if (lin != 0.f) {
           atomicAdd(&sum[dd[j]], lin);
-          atomicAdd(&num[dd[j]], lin * ai[j]);
+          if (kAcc) atomicAdd(&num[dd[j]], lin * ai[j]);
         }
       }
     }
@@ -379,17 +320,17 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
       const float lin = expf(alpha[s] + w[off + a] + obs[off + a] - mx);
       if (lin != 0.f) {
         atomicAdd(&sum[d], lin);
-        atomicAdd(&num[d], lin * (aacc[s] + arc_acc[off + a]));
+        if (kAcc) atomicAdd(&num[d], lin * (aacc[s] + arc_acc[off + a]));
       }
     }
     __syncthreads();  // B2: every arc is in its slot
     if (S > 0 && t + S < T)  // frame t's stage is free since B1
-      ring.fill<5, 0>(pos.slot, g, off + S * frame, 0, ch, K);
+      ring.fill<kArcRows, 0>(pos.slot, g, off + S * frame, 0, ch, K);
     float lm = -INFINITY;
     for (int k = tid; k < K; k += kThreads) {
-      const float r = acc_ratio(num[k], sum[k]);
+      const float r = kAcc ? acc_ratio(num[k], sum[k]) : 0.f;
       const float v = log_safe(sum[k]) + mx;
-      num[k] = r;
+      if (kAcc) num[k] = r;
       sum[k] = v;
       lm = fmaxf(lm, v);
     }
@@ -398,13 +339,13 @@ __global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(
     const float m2 = read_block_max(red);
     for (int k = tid; k < K; k += kThreads) {
       const float v = act * (sum[k] - m2) + (1.f - act) * alpha[k];
-      const float c = act * num[k] + (1.f - act) * aacc[k];
+      const float c = kAcc ? act * num[k] + (1.f - act) * aacc[k] : 0.f;
       alpha[k] = v;
-      aacc[k] = c;
+      if (kAcc) aacc[k] = c;
       alphas[row * K + k] = v;
-      aaccs[row * K + k] = c;
+      if (kAcc) aaccs[row * K + k] = c;
       sum[k] = 0.f;
-      num[k] = 0.f;
+      if (kAcc) num[k] = 0.f;
     }
     norm = norm + act * m2;
     if (tid == 0) norms[row] = norm;
@@ -633,10 +574,12 @@ int band_ring(int A, int K, int n_bufs, int arc_rows, int slot_rows, int* stages
   return 0;
 }
 
-// K9's ring: 4 [K] buffers, 5 arc rows; K8's and K10's: 2 buffers, 4 arc
-// rows and alpha_prev, or 4 buffers, 5 arc rows, alpha_prev and aacc_prev
-int fwd_ring(int A, int K, int* stages, int* chunk, size_t* smem) {
-  return band_ring(A, K, 4, 5, 0, stages, chunk, smem);
+// K7's ring: 2 [K] buffers, 4 arc rows; K9's: 4 buffers, 5 arc rows; K8's
+// and K10's: 2 buffers, 4 arc rows and alpha_prev, or 4 buffers, 5 arc rows,
+// alpha_prev and aacc_prev
+int fwd_ring(int A, int K, bool acc, int* stages, int* chunk, size_t* smem) {
+  return acc ? band_ring(A, K, 4, 5, 0, stages, chunk, smem)
+             : band_ring(A, K, 2, 4, 0, stages, chunk, smem);
 }
 
 int bwd_ring(int A, int K, bool acc, int* stages, int* chunk, size_t* smem) {
@@ -645,6 +588,25 @@ int bwd_ring(int A, int K, bool acc, int* stages, int* chunk, size_t* smem) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+template <bool kAcc>
+int launch_fwd(const float* obs, const int* src, const int* dst, const float* w,
+               const float* active, const float* arc_acc, float* alphas, float* aaccs,
+               float* norms, int T, int B, int A, int K, void* stream) {
+  int stages = 0, ch = 0;
+  size_t smem = 0;
+  if (fwd_ring(A, K, kAcc, &stages, &ch, &smem) < 0) return cudaErrorInvalidValue;
+  if (!(aligned16(obs) && aligned16(src) && aligned16(dst) && aligned16(w) &&
+        (!kAcc || aligned16(arc_acc)))) {  // the bulk copies need 16-byte aligned rows: no ring
+    stages = ch = 0;
+    smem = smem_bytes(kAcc ? 4 : 2, K);
+  }
+  cudaError_t e = prepare(band_fwd_kernel<kAcc>, smem);
+  if (e != cudaSuccess) return e;
+  band_fwd_kernel<kAcc><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      obs, src, dst, w, active, arc_acc, alphas, aaccs, norms, T, B, A, K, stages, ch);
+  return cudaGetLastError();
+}
 
 template <bool kAcc>
 int launch_bwd(const float* obs, const int* src, const int* dst, const float* w,
@@ -680,12 +642,8 @@ int pk2_latfb_max_slots(int n_bufs) {
 int pk2_latfb_logz_fwd(const float* obs, const int* src, const int* dst, const float* w,
                        const float* active, float* alphas, float* norms, int T, int B,
                        int A, int K, void* stream) {
-  const size_t smem = smem_bytes(2, K);
-  cudaError_t e = prepare(logz_fwd_kernel, smem);
-  if (e != cudaSuccess) return e;
-  logz_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      obs, src, dst, w, active, alphas, norms, T, B, A, K);
-  return cudaGetLastError();
+  return launch_fwd<false>(obs, src, dst, w, active, nullptr, alphas, nullptr, norms, T, B, A,
+                           K, stream);
 }
 
 int pk2_latfb_occupancies_bwd(const float* obs, const int* src, const int* dst, const float* w,
@@ -697,10 +655,16 @@ int pk2_latfb_occupancies_bwd(const float* obs, const int* src, const int* dst, 
                            final_w, logz, nullptr, gamma, T, B, A, K, stream);
 }
 
-// K9's ring at (A, K): *stages (0: no ring) stages of *chunk arcs each
+// K7's ring at (A, K): *stages (0: no ring) stages of *chunk arcs each
+int pk2_latfb_logz_fwd_ring(int A, int K, int* stages, int* chunk) {
+  size_t smem = 0;
+  return fwd_ring(A, K, false, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
+}
+
+// K9's ring at (A, K), as K7's
 int pk2_latfb_smbr_fwd_ring(int A, int K, int* stages, int* chunk) {
   size_t smem = 0;
-  return fwd_ring(A, K, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
+  return fwd_ring(A, K, true, stages, chunk, &smem) < 0 ? cudaErrorInvalidValue : 0;
 }
 
 // K8's (acc = 0) or K10's (acc = 1) ring at (A, K), as K9's
@@ -713,19 +677,8 @@ int pk2_latfb_smbr_fwd(const float* obs, const int* src, const int* dst, const f
                        const float* active, const float* arc_acc, float* alphas,
                        float* aaccs, float* norms, int T, int B, int A, int K,
                        void* stream) {
-  int stages = 0, ch = 0;
-  size_t smem = 0;
-  if (fwd_ring(A, K, &stages, &ch, &smem) < 0) return cudaErrorInvalidValue;
-  if (!(aligned16(obs) && aligned16(src) && aligned16(dst) && aligned16(w) &&
-        aligned16(arc_acc))) {  // the bulk copies need 16-byte aligned rows: no ring
-    stages = ch = 0;
-    smem = smem_bytes(4, K);
-  }
-  cudaError_t e = prepare(smbr_fwd_kernel, smem);
-  if (e != cudaSuccess) return e;
-  smbr_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      obs, src, dst, w, active, arc_acc, alphas, aaccs, norms, T, B, A, K, stages, ch);
-  return cudaGetLastError();
+  return launch_fwd<true>(obs, src, dst, w, active, arc_acc, alphas, aaccs, norms, T, B, A, K,
+                          stream);
 }
 
 int pk2_latfb_smbr_bwd(const float* obs, const int* src, const int* dst, const float* w,

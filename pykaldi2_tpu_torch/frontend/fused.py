@@ -18,8 +18,15 @@ energy is always the raw one: ``FeaturePipeline`` sends ``use_energy`` with
 On the H100 the kernel is bound by fp32 FMA throughput (no TF32, no tensor
 cores: the front end is fp32-exact); see the note at the top of
 ``csrc/fbank.cu`` for what its design does about it. Framing moved inside
-the kernel: it reads the waveform through the ``_frame_indices`` table
-(the Mosaic limit that kept framing outside the TPU kernel does not apply).
+the kernel: it computes each frame's sample indices as ``_frame_indices``
+does (shift, offset, reflection at the ends) and reads the waveform (the
+Mosaic limit that kept framing outside the TPU kernel does not apply).
+The kernel takes its own tables (``_kernel_tables``, which depend on the
+options only, not on the waveform's length): the window, one DFT table
+whose columns interleave cos and -sin of each bin, padded with zeros, each
+mel filter's weights over its run of nonzero bins (``mel_ranges``), the
+only bins its mel product sums, and K4's lifted DCT. The per-length
+constants (``_constants``) serve the plain versions only.
 
 ``fused_fbank`` and ``fused_mfcc`` take the plain version only for tensors
 on the CPU; on a CUDA tensor they launch their kernel or raise.
@@ -86,6 +93,84 @@ def _constants(opts: FbankOpts, n_samples: int, device: torch.device):
     return out
 
 
+def mel_ranges(bank: np.ndarray) -> np.ndarray:
+    """[M, 2] int32 (lo, hi): filter m's weights are zero outside bins
+    [lo, hi), its first and last nonzero bin; (0, 0) for a filter with
+    none. A sum over [lo, hi) in ascending k equals the dense one over all
+    bins bit for bit: each skipped term is fmaf(x, 0, acc) == acc."""
+    out = np.zeros((bank.shape[0], 2), np.int32)
+    for m, row in enumerate(bank):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            out[m] = nz[0], nz[-1] + 1
+    return out
+
+
+def kernel_table_shape(win: int, k: int) -> tuple:
+    """(Wp, Kp): the DFT table's rows (the window rounded up to the
+    kernel's chunk of 16 rows) and bins (K rounded up to a power of two, at
+    least 32) as ``csrc/fbank.cu`` takes them."""
+    return -(-win // 16) * 16, max(32, 1 << (k - 1).bit_length())
+
+
+def _lifted_dct_t(opts: MfccOpts) -> np.ndarray:
+    """The DCT matrix with the lifter folded in, transposed to [M, C]."""
+    dct = dct_matrix(opts.num_ceps, opts.mel_opts.num_bins)       # [C, M]
+    if opts.cepstral_lifter != 0.0:
+        dct = dct * lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)[:, None]
+    return np.ascontiguousarray(dct.T)
+
+
+_TABLES: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+
+
+def _kernel_tables(opts, device: torch.device):
+    """The kernel's tables for FbankOpts (K1) or MfccOpts (K4): the window
+    [W]; the interleaved DFT table [Wp, 2Kp] stored as [2Kp/64, Wp, 64]
+    blocks of 64 columns (a ring stage of a block is one contiguous copy);
+    the mel weights of each filter's run of bins (``mel_ranges``) one filter
+    after another, and each filter's [lo, hi, offset into them] [M, 3]; K4's
+    lifted DCT [M, C] (None for K1); and (Wp, Kp). None depends on the
+    waveform's length: cached per (options, device), the least recently used
+    dropped past 16."""
+    mfcc = isinstance(opts, MfccOpts)
+    fo = opts.frame_opts
+    key = (_opts_key(FbankOpts(frame_opts=fo, mel_opts=opts.mel_opts)),
+           (opts.num_ceps, opts.cepstral_lifter) if mfcc else None, str(device))
+    hit = _TABLES.get(key)
+    if hit is not None:
+        _TABLES.move_to_end(key)
+        return hit
+    cos_m, sin_m = _dft_matrices(fo.padded_window_size)
+    win, k = fo.window_size, cos_m.shape[1]
+    wp, kp = kernel_table_shape(win, k)
+    cs = np.zeros((wp, kp, 2), np.float32)
+    cs[:win, :k, 0] = cos_m[:win]
+    cs[:win, :k, 1] = sin_m[:win]
+    cs = cs.reshape(wp, 2 * kp // 64, 64).transpose(1, 0, 2)  # blocks of 64 columns
+    bank = mel_banks(opts.mel_opts, fo)
+    rng = mel_ranges(bank)
+    weights = [row[lo:hi] for row, (lo, hi) in zip(bank, rng)]
+    off = np.cumsum([0] + [len(x) for x in weights[:-1]])
+    band = np.concatenate([rng, off[:, None]], axis=1).astype(np.int32)
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    out = (put(W.feature_window(fo)), put(cs), put(np.concatenate(weights)),
+           put(band, torch.int32), put(_lifted_dct_t(opts)) if mfcc else None, wp, kp)
+    _TABLES[key] = out
+    while len(_TABLES) > 16:
+        _TABLES.popitem(last=False)
+    return out
+
+
+def _first_sample(fo) -> int:
+    """Frame 0's first sample before reflection, as ``window._frame_indices``
+    places it: frame t starts at t * shift + this."""
+    return 0 if fo.snip_edges else fo.window_shift // 2 - fo.window_size // 2
+
+
 def _centred_frames(wave: torch.Tensor, idx: torch.Tensor, fo) -> torch.Tensor:
     """[B, S] → [B, T, W] frames through the index table, DC removed."""
     frames = wave.to(torch.float32)[:, idx.long()]
@@ -132,14 +217,15 @@ def fused_fbank(wave: torch.Tensor, opts: FbankOpts) -> torch.Tensor:
     out = torch.empty((b, t_frames, nb), dtype=torch.float32, device=wave.device)
     if b * t_frames == 0:
         return out
-    idx, win, cos_w, sin_w, mel_t = _constants(opts, s, wave.device)
-    k = cos_w.shape[1]
+    win, cs, melw, band, _, wp, kp = _kernel_tables(opts, wave.device)
     lib = _lib()
     with torch.cuda.device(wave.device):
-        rc = lib.pk2_fbank(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
-                           D.ptr(mel_t), D.ptr(out), b, s, t_frames, fo.window_size, k, nb,
-                           int(fo.remove_dc_offset), float(fo.preemph_coeff),
-                           float(W.FLT_EPSILON), D.current_stream_ptr(wave.device))
+        rc = lib.pk2_fbank(D.ptr(wave), D.ptr(win), D.ptr(cs), D.ptr(melw), D.ptr(band),
+                           D.ptr(out), b, s, t_frames, fo.window_size, wp,
+                           fo.padded_window_size // 2, kp, nb, melw.numel(), fo.window_shift,
+                           _first_sample(fo), int(fo.remove_dc_offset),
+                           float(fo.preemph_coeff), float(W.FLT_EPSILON),
+                           D.current_stream_ptr(wave.device))
     D.check_launch(rc, "fbank kernel (K1)")
     fused_fbank.launches += 1
     return out
@@ -166,11 +252,7 @@ def _mfcc_constants(opts: MfccOpts, n_samples: int, device: torch.device):
            str(device))
     hit = _CONSTANTS.get(key)
     if hit is None:
-        dct = dct_matrix(opts.num_ceps, opts.mel_opts.num_bins)       # [C, M]
-        if opts.cepstral_lifter != 0.0:
-            dct = dct * lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)[:, None]
-        dct_t = torch.as_tensor(np.ascontiguousarray(dct.T), dtype=torch.float32,
-                                device=device)
+        dct_t = torch.as_tensor(_lifted_dct_t(opts), dtype=torch.float32, device=device)
         hit = (*_constants(fb_like, n_samples, device), dct_t)
         _CONSTANTS[key] = hit
         while len(_CONSTANTS) > 16:
@@ -211,15 +293,16 @@ def fused_mfcc(wave: torch.Tensor, opts: MfccOpts) -> torch.Tensor:
     out = torch.empty((b, t_frames, nc), dtype=torch.float32, device=wave.device)
     if b * t_frames == 0:
         return out
-    idx, win, cos_w, sin_w, mel_t, dct_t = _mfcc_constants(opts, s, wave.device)
+    win, cs, melw, band, dct_t, wp, kp = _kernel_tables(opts, wave.device)
     log_efloor = float(np.log(opts.energy_floor)) if opts.energy_floor > 0.0 else -np.inf
     lib = _lib()
     with torch.cuda.device(wave.device):
-        rc = lib.pk2_mfcc(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
-                          D.ptr(mel_t), D.ptr(dct_t), D.ptr(out), b, s, t_frames,
-                          fo.window_size, cos_w.shape[1], nb, nc, int(fo.remove_dc_offset),
-                          float(fo.preemph_coeff), float(W.FLT_EPSILON),
-                          int(opts.use_energy), log_efloor, D.current_stream_ptr(wave.device))
+        rc = lib.pk2_mfcc(D.ptr(wave), D.ptr(win), D.ptr(cs), D.ptr(melw), D.ptr(band),
+                          D.ptr(dct_t), D.ptr(out), b, s, t_frames, fo.window_size, wp,
+                          fo.padded_window_size // 2, kp, nb, nc, melw.numel(),
+                          fo.window_shift, _first_sample(fo), int(fo.remove_dc_offset),
+                          float(fo.preemph_coeff), float(W.FLT_EPSILON), int(opts.use_energy),
+                          log_efloor, D.current_stream_ptr(wave.device))
     D.check_launch(rc, "MFCC kernel (K4)")
     fused_mfcc.launches += 1
     return out
@@ -228,14 +311,33 @@ def fused_mfcc(wave: torch.Tensor, opts: MfccOpts) -> torch.Tensor:
 fused_mfcc.launches = 0
 
 
+def kernel_tile(nrows: int, opts, mfcc: bool = False) -> tuple:
+    """The tile K1 (or K4) takes for ``nrows`` rows under ``opts`` on the
+    current card: (rows a thread, CTAs a row tile, row tiles a cluster
+    sharing the table's stream, rows a tile)."""
+    fo = opts.frame_opts
+    wp, kp = kernel_table_shape(fo.window_size, fo.padded_window_size // 2)
+    nnz = int(np.diff(mel_ranges(mel_banks(opts.mel_opts, fo)), axis=1).sum())
+    out = [ctypes.c_int() for _ in range(4)]
+    D.check_launch(_lib().pk2_fbank_tile(nrows, wp, kp, opts.mel_opts.num_bins, nnz, int(mfcc),
+                                         *map(ctypes.byref, out)), "K1/K4 tile")
+    return tuple(x.value for x in out)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """Give the library's entry points their C types."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pk2_fbank.argtypes = [vp] * 6 + [ci] * 12 + [cf, cf, vp]
+    lib.pk2_fbank.restype = ci
+    lib.pk2_mfcc.argtypes = [vp] * 7 + [ci] * 13 + [cf, cf, ci, cf, vp]
+    lib.pk2_mfcc.restype = ci
+    lib.pk2_fbank_tile.argtypes = [ci] * 6 + [ctypes.POINTER(ci)] * 4
+    lib.pk2_fbank_tile.restype = ci
+    lib._pk2_typed = True
+
+
 def _lib() -> ctypes.CDLL:
     lib = D.load_kernel_lib("fbank")
     if not getattr(lib, "_pk2_typed", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pk2_fbank.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                  ci, cf, cf, vp]
-        lib.pk2_fbank.restype = ci
-        lib.pk2_mfcc.argtypes = [vp] * 8 + [ci] * 8 + [cf, cf, ci, cf, vp]
-        lib.pk2_mfcc.restype = ci
-        lib._pk2_typed = True
+        _declare(lib)
     return lib

@@ -179,8 +179,9 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ci
         lib.pk2_latfb_max_slots.argtypes = [ci]
         lib.pk2_latfb_max_slots.restype = ci
-        lib.pk2_latfb_smbr_fwd_ring.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
-        lib.pk2_latfb_smbr_fwd_ring.restype = ci
+        for name in ("pk2_latfb_logz_fwd_ring", "pk2_latfb_smbr_fwd_ring"):
+            getattr(lib, name).argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+            getattr(lib, name).restype = ci
         lib.pk2_latfb_bwd_ring.argtypes = [ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
         lib.pk2_latfb_bwd_ring.restype = ci
         lib._pk2_typed = True
@@ -190,6 +191,15 @@ def _lib() -> ctypes.CDLL:
 def max_slots(n_bufs: int) -> int:
     """Largest K the kernels take: n_bufs = 2 for K7/K8, 4 for K9/K10."""
     return _lib().pk2_latfb_max_slots(n_bufs)
+
+
+def logz_fwd_ring(a: int, k: int) -> Tuple[int, int]:
+    """K7's band ring at A arcs and K slots a frame: (stages, arcs a stage),
+    as ``smbr_fwd_ring`` with two [K] buffers and four arc rows a stage."""
+    stages, chunk = ctypes.c_int(), ctypes.c_int()
+    D.check_launch(_lib().pk2_latfb_logz_fwd_ring(a, k, ctypes.byref(stages),
+                                                  ctypes.byref(chunk)), "K7 ring size")
+    return stages.value, chunk.value
 
 
 def smbr_fwd_ring(a: int, k: int) -> Tuple[int, int]:

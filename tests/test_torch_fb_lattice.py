@@ -302,6 +302,55 @@ def test_bwd_outputs_ignore_inactive_frames(_interpret, case, kernel):
         assert np.abs(want).sum() > 0
 
 
+def _fwd_outputs(band, arc_acc, k, kernel, jax_side):
+    """K7's (alphas, norms) or K9's (alphas, aaccs, norms) for one band, at
+    the lattice's K: the Pallas kernels (interpret mode, K padded to 128) or
+    the port's plain versions, as numpy."""
+    if not jax_side:
+        fwd = _fwd_residuals(band, k, None if kernel == "logz" else arc_acc)
+        return [x for x in fwd if x is not None]
+    kp = -(-k // 128) * 128
+    jb = [jnp.asarray(x) for x in band]
+    out = (make_logz_fwd(kp)(*jb) if kernel == "logz"
+           else make_smbr_fwd(kp)(*jb, jnp.asarray(arc_acc)))
+    return [np.asarray(x)[..., :k] if np.ndim(x) == 3 else np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("kernel", ["logz", "smbr"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fwd_carries_ignore_inactive_frames(_interpret, case, kernel):
+    """What lets K7 and K9 skip an inactive frame without reading its arcs:
+    the reference's forward kernels (``_fwd_kernel``, ``_smbr_fwd_kernel``)
+    and the port's plain versions give the same alphas, aaccs and norms, by
+    value, whatever finite live arcs the frames past an utterance's end
+    hold, and an inactive frame repeats the previous frame's carries (the
+    blend keeps them exactly)."""
+    lat, obs, lens = _inputs(case, 31)
+    lens[0] = T - 2
+    band = _band_np(lat, obs, lens)
+    arc_acc = _arc_acc_np(lat, 32)
+    k, a = lat["final"].shape[1], lat["src"].shape[2]
+    live, live_acc = [x.copy() for x in band], arc_acc.copy()
+    rng = np.random.RandomState(33)
+    for i in np.flatnonzero(lens < T):
+        n = T - lens[i]
+        live[0][lens[i]:, i] = rng.randn(n, a)
+        live[1][lens[i]:, i] = rng.randint(0, k, (n, a))
+        live[2][lens[i]:, i] = rng.randint(0, k, (n, a))
+        live[3][lens[i]:, i] = rng.randn(n, a) * 0.3
+        live_acc[lens[i]:, i] = rng.randint(0, 2, (n, a))
+    inactive = band[4][:, :, 0] == 0
+    assert inactive.any() and not inactive[0].any()
+    for jax_side in (True, False):
+        want = _fwd_outputs(band, arc_acc, k, kernel, jax_side)
+        got = _fwd_outputs(live, live_acc, k, kernel, jax_side)
+        assert len(got) == (2 if kernel == "logz" else 3)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w), f"jax={jax_side}: inactive frames' arcs leak"
+            assert np.array_equal(g[1:][inactive[1:]], g[:-1][inactive[1:]])
+        assert np.abs(want[-1]).sum() > 0
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_logz_and_occupancies_match_jax_scan(_jax_scan, case):
     lat, obs, lens = _inputs(case, 11)

@@ -19,6 +19,7 @@ from pykaldi2_tpu.pipeline import FeaturePipeline as JaxPipeline
 from pykaldi2_tpu_torch import config as C
 from pykaldi2_tpu_torch import frontend as F
 from pykaldi2_tpu_torch.frontend import window as W
+from pykaldi2_tpu_torch.frontend import fused as FU
 from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_fbank_plain
 from pykaldi2_tpu_torch.pipeline import FeaturePipeline, feature_dim
 
@@ -131,6 +132,118 @@ def test_k1_plain_matches_kaldi_golden():
     got = to_np(fused_fbank(torch.from_numpy(wave[None]), ot))[0]
     ref = ref_fbank(wave.astype(np.float64), num_bins=23)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)  # fp32 vs fp64 golden
+
+
+# option sets whose mel filters K1/K4 sum over their runs of nonzero bins
+# (csrc/fbank.cu): the 80-bin default, Kaldi's mfcc_hires bank, the 23-bin
+# default, a VTLN-warped bank and 8 kHz audio
+MEL_RANGE_CASES = {
+    "80_bins": dict(mel=dict(num_bins=80)),
+    "hires_40": dict(mel=dict(num_bins=40, low_freq=20.0, high_freq=-400.0)),
+    "23_bins": dict(mel=dict(num_bins=23)),
+    "vtln_0.9": dict(mel=dict(num_bins=80, vtln_warp=0.9)),
+    "8khz_23": dict(frame=dict(samp_freq=8000.0), mel=dict(num_bins=23)),
+}
+
+
+def _range_opts(case):
+    c = MEL_RANGE_CASES[case]
+    return C.FbankOpts(frame_opts=C.FrameOpts(dither=0.0, **c.get("frame", {})),
+                       mel_opts=C.MelOpts(**c["mel"]))
+
+
+@pytest.mark.parametrize("case", sorted(MEL_RANGE_CASES))
+def test_k1_mel_ranges_and_banded_product(case):
+    """The host-built run [lo, hi) of each filter holds all its nonzero
+    weights, and the mel product summed over those runs in ascending k in
+    fp32 equals the dense product in the same order bit for bit, and the
+    plain version's log-mel within 1e-5."""
+    opts = _range_opts(case)
+    fo = opts.frame_opts
+    bank = F.mel_banks(opts.mel_opts, fo)
+    rng = FU.mel_ranges(bank)
+    m, k = bank.shape
+    assert rng.shape == (m, 2) and rng.dtype == np.int32
+    inside = (np.arange(k)[None] >= rng[:, :1]) & (np.arange(k)[None] < rng[:, 1:])
+    assert not np.any(bank[~inside])
+    live = rng[:, 1] > rng[:, 0]
+    assert live.all() or case == "8khz_23"
+    assert np.all(bank[np.flatnonzero(live), rng[live, 0]] != 0)
+    assert np.all(bank[np.flatnonzero(live), rng[live, 1] - 1] != 0)
+
+    wave = torch.from_numpy(_wave(7, 2, fo.window_size + 40 * fo.window_shift))
+    idx, win, cos_w, sin_w, mel_t = FU._constants(opts, wave.shape[1], wave.device)
+    frames = FU._centred_frames(wave, idx, fo)
+    prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+    x = (frames - fo.preemph_coeff * prev) * win
+    re, im = x @ cos_w, x @ sin_w
+    power = (re * re + im * im).reshape(-1, k).numpy()
+    dense = np.zeros((power.shape[0], m), np.float32)
+    banded = np.zeros_like(dense)
+    for f in range(m):
+        for b in range(k):  # every term, ascending k
+            dense[:, f] = dense[:, f] + power[:, b] * bank[f, b]
+        for b in range(rng[f, 0], rng[f, 1]):  # the run's terms only
+            banded[:, f] = banded[:, f] + power[:, b] * bank[f, b]
+    assert np.array_equal(banded, dense)
+    log_banded = np.log(np.maximum(banded, W.FLT_EPSILON))
+    want = FU._logmel(frames, fo, win, cos_w, sin_w, mel_t).reshape(-1, m).numpy()
+    np.testing.assert_allclose(log_banded, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mfcc", [False, True])
+@pytest.mark.parametrize("frame", [dict(), dict(samp_freq=8000.0),
+                                   dict(round_to_power_of_two=False),
+                                   dict(samp_freq=32000.0)])
+def test_k1_kernel_tables_hold_the_plain_tables(frame, mfcc):
+    """The kernel's tables carry the plain version's: the same window; the
+    blocked DFT table unblocks to cos and -sin of each bin interleaved
+    (zeros beyond W rows and K bins); the packed weights with each filter's
+    (lo, hi, offset) rebuild the mel bank; and for K4 the same lifted DCT.
+    They depend on the options only: one entry serves every length."""
+    fo = C.FrameOpts(dither=0.0, **frame)
+    if mfcc:
+        opts = C.MfccOpts(frame_opts=fo, num_ceps=40,
+                          mel_opts=C.MelOpts(num_bins=40, low_freq=20.0, high_freq=-400.0))
+        *plain, dct_plain = FU._mfcc_constants(opts, 16000, torch.device("cpu"))
+    else:
+        opts = C.FbankOpts(frame_opts=fo)
+        plain = FU._constants(opts, 16000, torch.device("cpu"))
+    _idx, win_plain, cos_w, sin_w, mel_t = plain
+    win, cs, melw, band, dct_t, wp, kp = FU._kernel_tables(opts, torch.device("cpu"))
+    assert FU._kernel_tables(opts, torch.device("cpu"))[1] is cs
+    np.testing.assert_array_equal(win.numpy(), win_plain.numpy())
+    if mfcc:
+        np.testing.assert_array_equal(dct_t.numpy(), dct_plain.numpy())
+    else:
+        assert dct_t is None
+    w, k = cos_w.shape
+    assert (wp, kp) == FU.kernel_table_shape(fo.window_size, fo.padded_window_size // 2)
+    assert wp % 16 == 0 and wp >= w and kp >= k and kp & (kp - 1) == 0
+    assert tuple(cs.shape) == (2 * kp // 64, wp, 64)
+    table = cs.numpy().transpose(1, 0, 2).reshape(wp, kp, 2)
+    np.testing.assert_array_equal(table[:w, :k, 0], cos_w.numpy())
+    np.testing.assert_array_equal(table[:w, :k, 1], sin_w.numpy())
+    assert not table[w:].any() and not table[:, k:].any()
+    bank = np.zeros((band.shape[0], k), np.float32)
+    for f, (lo, hi, off) in enumerate(band.numpy()):
+        bank[f, lo:hi] = melw.numpy()[off:off + hi - lo]
+    np.testing.assert_array_equal(bank, mel_t.numpy().T)
+
+
+@pytest.mark.parametrize("snip", [True, False])
+@pytest.mark.parametrize("n", [400, 401, 1234, 16000])
+def test_k1_kernel_frame_indices_match_the_table(snip, n):
+    """K1/K4 compute each frame's sample indices (frame t starts at
+    t * shift + ``_first_sample``, reflected into [0, S) and clipped) where
+    the plain version reads ``_frame_indices``: the same indices."""
+    fo = C.FrameOpts(snip_edges=snip)
+    nf = W.num_frames(n, fo)
+    i = (np.arange(nf)[:, None] * fo.window_shift + FU._first_sample(fo)
+         + np.arange(fo.window_size)[None])
+    i = np.where(i < 0, -i - 1, i)
+    i = np.where(i >= n, 2 * n - i - 1, i)
+    np.testing.assert_array_equal(np.clip(i, 0, n - 1), W._frame_indices(n, nf, fo))
 
 
 @pytest.mark.parametrize("bad", [dict(dither=1.0), dict(use_energy=True),

@@ -1,25 +1,32 @@
-"""Time the port's K5, K6, K8-K11 against an earlier version of their sources, in one process.
+"""Time the port's K1, K4-K11 against an earlier version of their sources, in one process.
 
     git archive <commit> pykaldi2_tpu_torch/csrc | tar -x -C build/parent
     python3 tools/kernel_ab.py --parent build/parent/pykaldi2_tpu_torch/csrc \
-        [--what k5,k6,k8,k9,k10,k11]
+        [--what k1,k4,k5,k6,k7,k8,k9,k10,k11]
 
-Builds the earlier ``lstm.cu``, ``latfb.cu`` and ``blockfb.cu`` with the
-port's nvcc flags into ``build/ab/``, and times, on the same inputs and card,
-the earlier and the current kernel in turns (earlier, current, current,
-earlier; CUDA-event means) at the main path's shapes: K5 and K6 at B=64,
-T=80, H=1024, P=512, K8, K9 and K10 on chip_smoke's ``padded_lattice``
-(B=32, T=448, K=256, A=512) and probe lattice (K=A=256), K8 and K10 fed
-the plain forwards' residuals, K11 on chip_smoke's 96k-state chain graph at
-R=16 and 32 in both orientations. The earlier K5, K6 and K8-K10 take the
-same C arguments as the current ones;
+Builds the earlier ``fbank.cu``, ``lstm.cu``, ``latfb.cu`` and ``blockfb.cu``
+with the port's nvcc flags into ``build/ab/``, and times, on the same inputs
+and card, the earlier and the current kernel in turns (earlier, current,
+current, earlier; CUDA-event means) at the main path's shapes: K1 (80-bin
+fbank) and K4 (mfcc_hires) at chip_smoke's FRONT_SHAPES (B=64 x 80 frames
+and one 1,230-frame utterance), K5 and K6 at B=64, T=80, H=1024, P=512,
+K7-K10 on chip_smoke's ``padded_lattice`` (B=32, T=448, K=256, A=512) and
+probe lattice (K=A=256), K8 and K10 fed the plain forwards' residuals, K11
+on chip_smoke's 96k-state chain graph at R=16 and 32 in both orientations.
+The first K1/K4 (commit 714a141's, told apart by its separate -sin table)
+takes other C arguments and tables than the current one, and is launched
+with them; both K1/K4 versions are timed twice: over eager calls through
+their wrappers (as chip_smoke's ``ms``, the time a caller pays), then from
+CUDA graphs of 20 calls (the device's time alone: at one utterance the
+wrappers' host work is a fair share of the call). The earlier K5, K6 and K7-K10 take the same C arguments as the
+current ones;
 the earlier K11 takes the CSR row pointer where the current one takes
 segment descriptors
 (the first K11, as in commit 7ff1e87, told apart by its source naming no
 ``segdesc``); both K11s are launched
 through ctypes directly, into buffers allocated once, since the wrapper's
 per-call host work takes about as long as the kernel. Each earlier result is
-held against the current one (K5 and K6 within chip_smoke's ``TOL``, K8-K10
+held against the current one (K1, K4, K5 and K6 within chip_smoke's ``TOL``, K7-K10
 within ``LAT_TOL``, K11 within ``BLOCK_TOL`` of the row max). Needs a CUDA
 card and nvcc.
 """
@@ -48,10 +55,64 @@ def build(src_dir: str, name: str, out_dir: str) -> ctypes.CDLL:
     return ctypes.CDLL(lib)
 
 
-def turns(label: str, parent, current, n: int) -> None:
+def is_first_fbank(src_dir: str) -> bool:
+    """Whether ``src_dir``'s fbank.cu is the first K1/K4 (commit 714a141 and
+    before: separate cos and -sin tables and a dense transposed mel matrix)."""
+    with open(os.path.join(src_dir, "fbank.cu")) as f:
+        return "const float* __restrict__ sinm" in f.read()
+
+
+def first_fbank_call(lib, wave, opts):
+    """Launch the first K1 (FbankOpts) or K4 (MfccOpts) from ``lib`` with its C
+    arguments, on the constants of the plain versions; returns the output."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.config import MfccOpts
+    from pykaldi2_tpu_torch.frontend import fused as F
+    from pykaldi2_tpu_torch.frontend import window as W
+
+    if not getattr(lib, "_pk2_first_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pk2_fbank.argtypes = [vp] * 7 + [ci] * 7 + [cf, cf, vp]
+        lib.pk2_fbank.restype = ci
+        lib.pk2_mfcc.argtypes = [vp] * 8 + [ci] * 8 + [cf, cf, ci, cf, vp]
+        lib.pk2_mfcc.restype = ci
+        lib._pk2_first_typed = True
+    fo = opts.frame_opts
+    b, s = wave.shape
+    t = W.num_frames(s, fo)
+    stream = D.current_stream_ptr(wave.device)
+    floor = float(W.FLT_EPSILON)
+    if isinstance(opts, MfccOpts):
+        idx, win, cos_w, sin_w, mel_t, dct_t = F._mfcc_constants(opts, s, wave.device)
+        out = torch.empty((b, t, opts.num_ceps), device=wave.device)
+        efloor = float(np.log(opts.energy_floor)) if opts.energy_floor > 0.0 else -np.inf
+        rc = lib.pk2_mfcc(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
+                          D.ptr(mel_t), D.ptr(dct_t), D.ptr(out), b, s, t, fo.window_size,
+                          cos_w.shape[1], opts.mel_opts.num_bins, opts.num_ceps,
+                          int(fo.remove_dc_offset), float(fo.preemph_coeff), floor,
+                          int(opts.use_energy), efloor, stream)
+    else:
+        idx, win, cos_w, sin_w, mel_t = F._constants(opts, s, wave.device)
+        out = torch.empty((b, t, opts.mel_opts.num_bins), device=wave.device)
+        rc = lib.pk2_fbank(D.ptr(wave), D.ptr(idx), D.ptr(win), D.ptr(cos_w), D.ptr(sin_w),
+                           D.ptr(mel_t), D.ptr(out), b, s, t, fo.window_size, cos_w.shape[1],
+                           opts.mel_opts.num_bins, int(fo.remove_dc_offset),
+                           float(fo.preemph_coeff), floor, stream)
+    D.check_launch(rc, "first K1/K4")
+    return out
+
+
+def turns(label: str, parent, current, n: int, graph: bool = False) -> None:
+    """Mean ms a call of the earlier and the current version, in turns; with
+    ``graph``, from CUDA graphs of n calls (device time without the
+    wrappers' host work)."""
     import chip_smoke as C
 
-    ms = [C.timed(f, n=n) for f in (parent, current, current, parent)]
+    ms = [C.timed_graph(f, n=n) if graph else C.timed(f, n=n)
+          for f in (parent, current, current, parent)]
     print(f"{label}: earlier {ms[0]:.4f} / {ms[3]:.4f} ms, current {ms[1]:.4f} / {ms[2]:.4f} ms "
           f"(means {(ms[0] + ms[3]) / 2:.4f} vs {(ms[1] + ms[2]) / 2:.4f})", flush=True)
 
@@ -143,7 +204,7 @@ def k5_ab(parent_lib) -> None:
 
 
 def latfb_ab(parent_lib, kernels: list) -> None:
-    """K8, K9 and K10 (those named in ``kernels``) on chip_smoke's
+    """K7-K10 (those named in ``kernels``) on chip_smoke's
     ``padded_lattice`` and probe bands; K8 and K10 take the plain forwards'
     residuals."""
     import torch
@@ -154,8 +215,8 @@ def latfb_ab(parent_lib, kernels: list) -> None:
     from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn, n_ptr in (("pk2_latfb_occupancies_bwd", 10), ("pk2_latfb_smbr_fwd", 9),
-                      ("pk2_latfb_smbr_bwd", 13)):
+    for fn, n_ptr in (("pk2_latfb_logz_fwd", 7), ("pk2_latfb_occupancies_bwd", 10),
+                      ("pk2_latfb_smbr_fwd", 9), ("pk2_latfb_smbr_bwd", 13)):
         getattr(parent_lib, fn).argtypes = [vp] * n_ptr + [ci] * 4 + [vp]
         getattr(parent_lib, fn).restype = ci
     parent_lib.pk2_latfb_max_slots.argtypes = [ci]
@@ -186,10 +247,11 @@ def latfb_ab(parent_lib, kernels: list) -> None:
                                          KC.logz_fwd_plain(*band, active, ks),
                                          KC.smbr_fwd_plain(*band, active, arc_acc, ks))
         shape = f"{label} B={b} T={t} K={ks} A={lat.src.shape[2]}"
-        calls = {"k8": lambda: KC.occupancies_bwd(*args8),
+        calls = {"k7": lambda: KC.logz_fwd(*band, active, ks),
+                 "k8": lambda: KC.occupancies_bwd(*args8),
                  "k9": lambda: KC.smbr_fwd(*band, active, arc_acc, ks),
                  "k10": lambda: KC.smbr_contribs_bwd(*args10)}
-        for what in (w for w in ("k8", "k9", "k10") if w in kernels):
+        for what in (w for w in ("k7", "k8", "k9", "k10") if w in kernels):
 
             def run(lib, call=calls[what]):
                 D._LIBS["latfb"] = lib
@@ -200,7 +262,11 @@ def latfb_ab(parent_lib, kernels: list) -> None:
             old, new = run(parent_lib), run(current_lib)
             torch.cuda.synchronize()
             name = f"{what.upper()} {label}"
-            if what == "k9":
+            if what == "k7":
+                C.close_log(f"{name} alphas earlier vs current", new[0], old[0])
+                C.close(f"{name} norms earlier vs current", new[1], old[1], C.LAT_TOL["log"],
+                        C.LAT_TOL["log"])
+            elif what == "k9":
                 C.close_log(f"{name} alphas earlier vs current", new[0], old[0])
                 C.close(f"{name} aaccs earlier vs current", new[1], old[1], C.LAT_TOL["abs"],
                         C.LAT_TOL["rel"])
@@ -215,6 +281,51 @@ def latfb_ab(parent_lib, kernels: list) -> None:
                         C.LAT_TOL["rel"])
             turns(f"{what.upper()} {shape}", lambda: run(parent_lib), lambda: run(current_lib),
                   10)
+
+
+def fbank_ab(parent_lib, parent_first: bool, kernels: list) -> None:
+    """K1 (80-bin fbank) and K4 (mfcc_hires), those named in ``kernels``, at
+    chip_smoke's FRONT_SHAPES; a first-design parent is launched with its
+    own C arguments."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.frontend import fused as F
+
+    dev = torch.device("cuda", 0)
+    current_lib = F._lib()
+    if not parent_first:
+        F._declare(parent_lib)
+    rng = np.random.RandomState(0)
+    for what in (w for w in ("k1", "k4") if w in kernels):
+        mfcc = what == "k4"
+        opts = C.mfcc_opts(C.MFCC_HIRES) if mfcc else C.fbank_opts()
+        fn = F.fused_mfcc if mfcc else F.fused_fbank
+        for b, t in C.FRONT_SHAPES:
+            wave = C.front_wave(rng, b, t, opts.frame_opts, dev)
+
+            def run(lib, wave=wave):
+                if lib is parent_lib and parent_first:
+                    return first_fbank_call(lib, wave, opts)
+                D._LIBS["fbank"] = lib
+                out = fn(wave, opts)
+                D._LIBS["fbank"] = current_lib
+                return out
+
+            old, new = run(parent_lib), run(current_lib)
+            torch.cuda.synchronize()
+            tol = C.TOL["mfcc" if mfcc else "fbank"]
+            err = float((old - new).abs().max())
+            label = f"{what.upper()} B={b} x {t} frames"
+            print(f"{label} earlier vs current: max abs difference {err:.3e} (tolerance {tol:g})",
+                  flush=True)
+            if err > tol:
+                raise SystemExit(f"{label}: the earlier and the current kernel disagree")
+            turns(f"{label}, eager calls", lambda: run(parent_lib), lambda: run(current_lib), 20)
+            turns(f"{label}, CUDA graph", lambda: run(parent_lib), lambda: run(current_lib), 20,
+                  graph=True)
 
 
 def k11_ab(parent_lib, parent_takes_rowptr: bool) -> None:
@@ -274,7 +385,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="csrc directory of the earlier version")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
-    ap.add_argument("--what", default="k5,k6,k8,k9,k10,k11")
+    ap.add_argument("--what", default="k1,k4,k5,k6,k7,k8,k9,k10,k11")
     args = ap.parse_args(argv)
     import torch
 
@@ -286,15 +397,17 @@ def main(argv=None) -> int:
                          capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}", flush=True)
     D.resolve_device("cuda")
-    D.build_all(("lstm", "blockfb", "latfb"))
+    D.build_all()
     what = args.what.split(",")
+    if {"k1", "k4"} & set(what):
+        fbank_ab(build(args.parent, "fbank", args.out), is_first_fbank(args.parent), what)
     if "k5" in what or "k6" in what:
         lstm_parent = build(args.parent, "lstm", args.out)
         if "k5" in what:
             k5_ab(lstm_parent)
         if "k6" in what:
             k6_ab(lstm_parent)
-    if {"k8", "k9", "k10"} & set(what):
+    if {"k7", "k8", "k9", "k10"} & set(what):
         latfb_ab(build(args.parent, "latfb", args.out), what)
     if "k11" in what:
         with open(os.path.join(args.parent, "blockfb.cu")) as f:

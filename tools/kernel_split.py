@@ -1,12 +1,14 @@
 """Split a hand-written kernel's time into its parts with clock64() stamps.
 
-    python3 tools/kernel_split.py [--src DIR] [--what k5,k6,k8,k9,k10,k11] [--out build/split]
+    python3 tools/kernel_split.py [--src DIR] [--what k1,k4,k5,k6,k7,k8,k9,k10,k11] \
+        [--out build/split]
     python3 tools/kernel_split.py --src <csrc of commit 7ff1e87> --what k6_first,k11_first
     python3 tools/kernel_split.py --src <csrc of commit 7f9f2ed> --what k5_first,k9_first
     python3 tools/kernel_split.py --src <csrc of commit 3c9d343> \
         --what k8_first,k8_first_nopad,k10_first,k10_first_nopad
+    python3 tools/kernel_split.py --src <csrc of commit 714a141> --what k7_first,k1_first,k4_first
 
-Copies ``lstm.cu``, ``latfb.cu`` or ``blockfb.cu`` from ``--src`` (default: the port's
+Copies ``fbank.cu``, ``lstm.cu``, ``latfb.cu`` or ``blockfb.cu`` from ``--src`` (default: the port's
 ``pykaldi2_tpu_torch/csrc``) into ``--out``, inserts stamps at fixed lines
 of the kernel (thread 0 of every CTA adds the cycles since its previous
 stamp to one of a few buckets in a ``__device__`` array, and counts the
@@ -20,13 +22,25 @@ with the line it could not find. The stamps cost a few hundred cycles a
 step, so read the buckets as shares, and the event time as the kernel's.
 
 Kernels and shapes:
+  k1, k4  ``fbank_kernel<R, false>`` (80-bin fbank) / ``<R, true>``
+       (mfcc_hires) at chip_smoke's FRONT_SHAPES (64 x 80 frames, one
+       1,230-frame utterance), cycles a CTA (thread 0 is a consumer),
+       buckets: set-up, framing pass 1 (gathers of two rows) and pass 2,
+       frames barrier, per 16-row chunk the ring wait, FMAs and stage
+       release, drain, spectrum, banded mel (K4: and the DCT);
+  k1_first, k4_first  ``fbank_kernel<kMfcc>`` as in commit 714a141 (32 rows
+       a CTA, a bin a thread), launched with its own C arguments, buckets:
+       framing, DFT and power, mel product (K4: and the DCT);
   k5   ``lstmp_fwd_kernel`` at B=64, T=80, H=1024, P=512 (one BLSTMP layer
        direction), cycles a step per CTA;
-  k9   ``smbr_fwd_kernel`` on chip_smoke's ``padded_lattice`` (B=32, T=448,
-       K=256, A=512, ~74% of the band live arcs, padding at slot 0), cycles
-       a frame per CTA, buckets: ring wait + barrier 0, pass 1, barrier 1,
-       block max, pass 2 (atomics), barrier 2, slot pass, barrier 3, blend
-       and stores, inactive frames;
+  k7, k9  ``band_fwd_kernel<false>`` / ``<true>`` on chip_smoke's
+       ``padded_lattice`` (B=32, T=448, K=256, A=512, ~74% of the band live
+       arcs, padding at slot 0), cycles a frame per CTA, buckets: ring wait
+       + barrier 0, pass 1, barrier 1, block max, pass 2 (atomics), barrier
+       2, slot pass, barrier 3, blend and stores, inactive frames;
+  k7_first  ``logz_fwd_kernel`` as in commit 714a141, buckets: first pass
+       (loads, scores), first ``block_max``, arc pass (reloads, gathers,
+       atomics), slot_logs, blend and stores;
   k8, k10  ``band_bwd_kernel<false>`` / ``<true>`` on the same band, fed the
        plain forwards' residuals, cycles a frame per CTA, k9's buckets with
        the ring wait (and the loop's top) apart from barrier 0 (pass 1 also
@@ -37,6 +51,7 @@ Kernels and shapes:
        atomics), slot_logs (K10: with the ratios), blend; ``_nopad`` keeps
        padding arcs out of the atomics (an experiment: an active frame of
        padding only then differs);
+  k9_first  ``smbr_fwd_kernel`` as in commit 7f9f2ed;
   k6   ``lstmp_bwd_kernel`` at B=64, T=80, H=1024, P=512 (one BLSTMP layer
        direction), buckets: phase-1 staging, phase-1 mma, partial stores
        and dhp epilogue, barrier 1, phase-2 staging, phase-2 mma and gate
@@ -101,6 +116,30 @@ K9_FIRST = [
     ("if (tid == 0) norms[row] = norm;", "after+1", "PK2_STAMP(4);"),
 ]
 
+# K7's first design, as in commit 714a141 (K9_FIRST's loop without the accuracy carry)
+K7_FIRST = [
+    ("float norm = 0.f;", "after", "PK2_T0;"),
+    ("lmax = fmaxf(lmax, alpha[src[off + a]] + w[off + a] + obs[off + a]);", "after",
+     "PK2_STAMP(0);"),
+    ("const float mx = fmaxf(block_max(lmax, red), kNegInf);", "after", "PK2_STAMP(1);"),
+    ("atomicAdd(&sum[dst[off + a]], expf(s - mx));", "after+2", "PK2_STAMP(2);"),
+    ("const float m2 = slot_logs(sum, K, mx, red);", "after", "PK2_STAMP(3);"),
+    ("if (tid == 0) norms[row] = norm;", "after+1", "PK2_STAMP(4);"),
+]
+
+# K1 and K4's first design, as in commit 714a141 (one template; K4 adds the DCT)
+K1_FIRST = [
+    ("const unsigned full = 0xffffffffu;", "after", "PK2_T0;"),
+    ("__syncthreads();", "after", "PK2_STAMP(0);"),
+    ("for (int r = 0; r < FB_ROWS; ++r) spec[r * K + k] = re[r] * re[r] + im[r] * im[r];",
+     "after+2", "PK2_STAMP(1);"),
+    ("if (!kMfcc) return;", "before", "PK2_STAMP(2);"),
+]
+K4_FIRST = K1_FIRST + [
+    ("out[(size_t)row * C + c] = (use_energy && c == 0) ? elog[r] : acc;", "after+1",
+     "PK2_STAMP(3);"),
+]
+
 # K8 and K10's first design, as in commit 3c9d343 (K9_FIRST's loop shape, in reverse)
 K8_FIRST = [
     ("float bnorm = 0.f;", "after", "PK2_T0;"),
@@ -114,6 +153,44 @@ K8_FIRST = [
 K10_FIRST = K8_FIRST[:3] + [
     ("atomicAdd(&num[s], lin * (acc + bcd));", "after+2", "PK2_STAMP(2);"),
 ] + K8_FIRST[4:]
+
+# the current K7 and K9, one template: the stamps run in the instantiation
+# that the wrapper launches
+BAND_FWD = [
+    ("float act_next = active[b];", "after", "PK2_T0;"),
+    ("__syncthreads();  // B0: ... in every thread, and the last frame's carries are final",
+     "after", "PK2_STAMP(0);"),
+    ("continue;", "before", "PK2_STAMP(9);"),
+    ("post_warp_max(lmax, red);", "after", "PK2_STAMP(1);"),
+    ("__syncthreads();  // B1: the posts are in; no thread reads this frame's stage again",
+     "after", "PK2_STAMP(2);"),
+    ("const float mx = fmaxf(read_block_max(red), kNegInf);", "after", "PK2_STAMP(3);"),
+    ("__syncthreads();  // B2: every arc is in its slot", "before", "PK2_STAMP(4);"),
+    ("__syncthreads();  // B2: every arc is in its slot", "after", "PK2_STAMP(5);"),
+    ("post_warp_max(lm, red);", "after", "PK2_STAMP(6);"),
+    ("__syncthreads();  // B3: the slots' maxima are in", "after", "PK2_STAMP(7);"),
+    ("if (tid == 0) norms[row] = norm;", "after", "PK2_STAMP(8);"),
+]
+
+# the current K1 and K4, one template (K4 adds the DCT); thread 0 is a consumer
+FBANK = [
+    ("const int nchunks = p.Wp / kChunk;", "after", "PK2_T0;"),
+    ("else __syncthreads();", "after", "PK2_STAMP(9);"),
+    ("float s[2] = {0.f, 0.f};", "after", "PK2_STAMP(11);"),
+    ("s[h] += v[h][u];", "after+3", "PK2_STAMP(10);"),
+    ("asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\"(kConsumers) : \"memory\");  // the frames are in",
+     "before", "PK2_STAMP(0);"),
+    ("asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\"(kConsumers) : \"memory\");  // the frames are in",
+     "after", "PK2_STAMP(2);"),
+    ("mbar_wait(full_bar + stage, (q / kStages) & 1);  // chunk q has landed", "after",
+     "PK2_STAMP(1);"),
+    ("acc[i][7] = fmaf(xv[i], t1.w, acc[i][7]);", "after+2", "PK2_STAMP(4);"),
+    ("for (int j = 0; j < CM; ++j) mbar_arrive_remote(empty_bar + stage, crank + CL * j);",
+     "after+1", "PK2_STAMP(3);"),
+    ("else __syncthreads();", "after", "PK2_STAMP(5);"),
+    ("else __syncthreads();", "after", "PK2_STAMP(6);"),
+    ("if (!kMfcc) return;", "before", "PK2_STAMP(7);"),
+]
 
 # the current K8 and K10, one template: the stamps run in the instantiation
 # that the wrapper launches
@@ -175,20 +252,12 @@ SPECS = {
         ("cluster.sync();", "after", "PK2_STAMP(5);"),
         ("if (t + 1 < T) grid.sync();", "before", "PK2_STAMP(6);"),
     ]),
-    "k9": ("__global__ void __launch_bounds__(kThreads) smbr_fwd_kernel(", [
-        ("float act_next = active[b];", "after", "PK2_T0;"),
-        ("__syncthreads();  // B0: ... in every thread, and the last frame's carries are final",
-         "after", "PK2_STAMP(0);"),
-        ("continue;", "before", "PK2_STAMP(9);"),
-        ("post_warp_max(lmax, red);", "after", "PK2_STAMP(1);"),
-        ("__syncthreads();  // B1: the posts are in; no thread reads this frame's stage again",
-         "after", "PK2_STAMP(2);"),
-        ("const float mx = fmaxf(read_block_max(red), kNegInf);", "after", "PK2_STAMP(3);"),
-        ("__syncthreads();  // B2: every arc is in its slot", "before", "PK2_STAMP(4);"),
-        ("__syncthreads();  // B2: every arc is in its slot", "after", "PK2_STAMP(5);"),
-        ("post_warp_max(lm, red);", "after", "PK2_STAMP(6);"),
-        ("__syncthreads();  // B3: the slots' maxima are in", "after", "PK2_STAMP(7);"),
-        ("if (tid == 0) norms[row] = norm;", "after", "PK2_STAMP(8);"),
+    "k7": ("__global__ void __launch_bounds__(kThreads) band_fwd_kernel(", BAND_FWD),
+    "k9": ("__global__ void __launch_bounds__(kThreads) band_fwd_kernel(", BAND_FWD),
+    "k1": ("__global__ void __launch_bounds__(kThreads, 1) fbank_kernel(", FBANK),
+    "k4": ("__global__ void __launch_bounds__(kThreads, 1) fbank_kernel(", FBANK + [
+        ("p.out[static_cast<size_t>(row) * p.C + c] = (p.use_energy && c == 0) ? elog[r] : a;",
+         "after+1", "PK2_STAMP(8);"),
     ]),
     "k8": ("__global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(", BAND_BWD),
     "k10": ("__global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(", BAND_BWD),
@@ -223,6 +292,9 @@ SPECS = {
         ("atomicAdd(&num[d], lin * acc_in);", "after", "}"),
         ("__syncthreads();", "after", "PK2_STAMP(2);"),
     ] + K9_FIRST[4:]),
+    "k7_first": ("__global__ void __launch_bounds__(kThreads) logz_fwd_kernel(", K7_FIRST),
+    "k1_first": ("fbank_kernel(const float* __restrict__ wave,", K1_FIRST),
+    "k4_first": ("fbank_kernel(const float* __restrict__ wave,", K4_FIRST),
     "k8_first": ("__global__ void __launch_bounds__(kThreads) occupancies_bwd_kernel(", K8_FIRST),
     # padding arcs kept out of the atomic (an experiment, as k9_first_nopad)
     "k8_first_nopad": ("__global__ void __launch_bounds__(kThreads) occupancies_bwd_kernel(",
@@ -257,6 +329,17 @@ BUCKETS = {
            "block max", "pass 2 (atomics)", "barrier 2",
            "slot pass (ratio, log, warp max)", "barrier 3", "blend + stores",
            "inactive frame (carries out)"],
+    "k7": ["ring wait + barrier 0", "pass 1 (scores, warp max)", "barrier 1",
+           "block max", "pass 2 (atomics)", "barrier 2", "slot pass (log, warp max)",
+           "barrier 3", "blend + stores", "inactive frame (carries out)"],
+    "k1": ["framing: last pair's pass 2", "chunk wait", "frames barrier", "stage released",
+           "FMA (16 table rows)", "drain + barrier", "power spectrum out + barrier",
+           "banded mel + log + store", "-", "set-up (mbarriers, mel bands)",
+           "framing pass 1 (gathers of two rows)", "framing pass 2 (the pair before)"],
+    "k4": ["framing: last pair's pass 2", "chunk wait", "frames barrier", "stage released",
+           "FMA (16 table rows)", "drain + barrier", "power spectrum out + barrier",
+           "banded mel + log", "DCT + store", "set-up (mbarriers, mel bands)",
+           "framing pass 1 (gathers of two rows)", "framing pass 2 (the pair before)"],
     "k8": ["barrier 0", "pass 1 (scores, gamma out, warp max)", "barrier 1",
            "block max", "pass 2 (atomics)", "barrier 2", "slot pass (log, warp max)",
            "barrier 3", "blend", "inactive frame (zeros out)", "loop top + ring wait"],
@@ -266,6 +349,12 @@ BUCKETS = {
             "inactive frame (zeros out)", "loop top + ring wait"],
     "k5_first": ["staging hp", "gate product", "gate math (xp loaded)", "barrier 1",
                  "staging h_full", "projection + partial sums", "barrier 2"],
+    "k7_first": ["first pass (loads, scores)", "first block_max",
+                 "arc pass (reloads, gathers, atomics)", "slot_logs", "blend + stores"],
+    "k1_first": ["framing (index table, two passes)", "DFT + power (a bin a thread)",
+                 "mel product + log + store"],
+    "k4_first": ["framing (index table, two passes)", "DFT + power (a bin a thread)",
+                 "mel product + log", "DCT + store"],
     "k9_first": ["first pass (loads, scores)", "first block_max", "atomic pass",
                  "ratios + slot_logs", "blend + stores"],
     "k9_first_nopad": ["first pass (loads, scores)", "first block_max",
@@ -315,8 +404,8 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
     """The kernel's library built from ``src_dir``, with the stamps or without."""
     from pykaldi2_tpu_torch import device as D
 
-    name = {"k5": "lstm", "k6": "lstm", "k8": "latfb", "k9": "latfb",
-            "k10": "latfb"}.get(what.split("_")[0], "blockfb")
+    name = {"k1": "fbank", "k4": "fbank", "k5": "lstm", "k6": "lstm", "k7": "latfb",
+            "k8": "latfb", "k9": "latfb", "k10": "latfb"}.get(what.split("_")[0], "blockfb")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(src_dir, f"{name}.cu")) as f:
         text = f.read()
@@ -338,14 +427,19 @@ def build(src_dir: str, out_dir: str, what: str, stamped: bool = True) -> ctypes
         out.pk2_lstmp_bwd.argtypes = [vp] * 10 + [ci] * 5 + [vp]
         out.pk2_lstmp_bwd.restype = ci
         out._pk2_typed = True
-    elif name == "latfb":  # the entry points K8's, K9's and K10's wrappers call, in every version
-        for fn, n_ptr in (("pk2_latfb_occupancies_bwd", 10), ("pk2_latfb_smbr_fwd", 9),
-                          ("pk2_latfb_smbr_bwd", 13)):
+    elif name == "latfb":  # the entry points K7-K10's wrappers call, in every version
+        for fn, n_ptr in (("pk2_latfb_logz_fwd", 7), ("pk2_latfb_occupancies_bwd", 10),
+                          ("pk2_latfb_smbr_fwd", 9), ("pk2_latfb_smbr_bwd", 13)):
             getattr(out, fn).argtypes = [vp] * n_ptr + [ci] * 4 + [vp]
             getattr(out, fn).restype = ci
         out.pk2_latfb_max_slots.argtypes = [ci]
         out.pk2_latfb_max_slots.restype = ci
         out._pk2_typed = True
+    elif name == "fbank":  # a first K1/K4 is typed where it is launched
+        if not what.endswith("_first"):
+            from pykaldi2_tpu_torch.frontend.fused import _declare
+
+            _declare(out)
     else:  # the first and the current K11 take the same arguments but the 4th
         out.pk2_blockfb_matvec.argtypes = [vp] * 8 + [ci] * 4 + [vp]
         out.pk2_blockfb_matvec.restype = ci
@@ -432,7 +526,9 @@ def run_latfb(what: str, src: str, out: str, calls: int = 3):
     active = FL._active_ts(t, nf)
     arc_acc = FL._arc_acc_ts(lat, ref, "pdf", None, None)
     kernel = what.split("_")[0]
-    if kernel == "k9":
+    if kernel == "k7":
+        fn = lambda: KC.logz_fwd(*band, active, k)  # noqa: E731
+    elif kernel == "k9":
         fn = lambda: KC.smbr_fwd(*band, active, arc_acc, k)  # noqa: E731
     else:  # the backward kernels take the plain forwards' residuals
         args8, args10 = C.latfb_bwd_args(band, active, arc_acc, lat,
@@ -452,6 +548,44 @@ def run_latfb(what: str, src: str, out: str, calls: int = 3):
     D._LIBS["latfb"] = base
     report(what, f"padded_lattice B={b} T={t} K={k} A={a}", raw, calls, "a frame per CTA",
            b * t, ms)
+
+
+def run_fbank(what: str, src: str, out: str, calls: int = 5):
+    """K1 (80-bin fbank) or K4 (mfcc_hires) at chip_smoke's FRONT_SHAPES,
+    cycles a CTA; a ``_first`` version is launched with its own C arguments."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    import kernel_ab as AB
+    from pykaldi2_tpu_torch import device as D
+    from pykaldi2_tpu_torch.frontend import fused as F
+
+    dev = torch.device("cuda", 0)
+    mfcc = what.startswith("k4")
+    opts = C.mfcc_opts(C.MFCC_HIRES) if mfcc else C.fbank_opts()
+    plain, split = build(src, out, what, stamped=False), build(src, out, what)
+    base = D._LIBS.get("fbank")
+
+    def call(lib):
+        if what.endswith("_first"):
+            return AB.first_fbank_call(lib, wave, opts)
+        D._LIBS["fbank"] = lib
+        got = (F.fused_mfcc if mfcc else F.fused_fbank)(wave, opts)
+        D._LIBS["fbank"] = base
+        return got
+
+    rng = np.random.RandomState(0)
+    for b, t in C.FRONT_SHAPES:
+        wave = C.front_wave(rng, b, t, opts.frame_opts, dev)
+        ms = C.timed(lambda: call(plain))
+        call(split)
+        take(split)
+        for _ in range(calls):
+            call(split)
+        raw = take(split)
+        ctas = raw[32] / calls  # thread 0 of every CTA passes stamp 0 once a call
+        report(what, f"B={b} x {t} frames ({ctas:.0f} CTAs)", raw, calls, "a CTA", ctas, ms)
 
 
 def run_k6(what: str, src: str, out: str, calls: int = 5):
@@ -536,7 +670,7 @@ def run_k11(what: str, src: str, out: str, calls: int = 20):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "pykaldi2_tpu_torch", "csrc"))
-    ap.add_argument("--what", default="k5,k6,k8,k9,k10,k11")
+    ap.add_argument("--what", default="k1,k4,k5,k6,k7,k8,k9,k10,k11")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "split"))
     args = ap.parse_args(argv)
     import torch
@@ -550,8 +684,9 @@ def main(argv=None) -> int:
     print(f"card: {smi.stdout.strip()}", flush=True)
     D.build_all()
     for what in args.what.split(","):
-        run = {"k5": run_k5, "k6": run_k6, "k8": run_latfb, "k9": run_latfb,
-               "k10": run_latfb}.get(what.split("_")[0], run_k11)
+        run = {"k1": run_fbank, "k4": run_fbank, "k5": run_k5, "k6": run_k6, "k7": run_latfb,
+               "k8": run_latfb, "k9": run_latfb, "k10": run_latfb}.get(what.split("_")[0],
+                                                                      run_k11)
         run(what, args.src, args.out)
     return 0
 
