@@ -69,7 +69,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (default) routes on phase 9's corpus, 3 steps per criterion, K11 not
      launched; a small block-route train step on the card against the CPU;
      and per route and criterion the fenced train step, peak memory and a
-     profile with K11's share.
+     profile with K11's share;
+ 11. data simulation with the recipe's block (examples/librispeech/
+     data.yaml:32-50) on phase 3's corpus: (a) host-side,
+     ``bin/compute_cmvn_stats.main`` then ``bin/train_ce.main`` on the
+     flagship with those stats, K1-K3 launched, the loader's wait per step
+     printed beside phase 5's step; (b) ``on_device: true``: the same CE
+     run, the sim_rir [64, 8000] and sim_noise shapes, the host's
+     ``batch_extras`` time per batch, ``apply_simulation`` on the card
+     against the CPU on one batch, phase 5's timing for that step and the
+     FFTs' device time in its profile;
+ 12. ``bin/decode.main -decoder host`` over phase 9's 96 utterances with
+     phase 9's SE MMI checkpoint, a free word-loop graph of 200 random words
+     (``make_decode_graph``, 2-5 phones each) and random reference
+     transcripts, at the CLI's beam 16 and max_active 7000 with
+     ``-num_threads``, ``-prior``, ``-dump_ark`` and ``-ref``: K1 and K2
+     launched and K3 not, forward ms per batch, host search ms per
+     utterance, real-time factor and WER (meaningless with these weights),
+     and two utterances' dumped log-likelihoods against the CPU run.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -123,6 +140,11 @@ LAT_TOL = {"log": 1e-4, "rel": 1e-4, "abs": 1e-5}
 # of the exact sum relative to the element, so the two within 3e-5 of the
 # row's max
 BLOCK_TOL = 3e-5
+# apply_simulation card vs CPU (phase 11): cuFFT against pocketfft over
+# [64, 32768] rows, then the same mixing: within 1e-5 of max|out|
+SIM_TOL = 1e-5
+# phase 12's free word loop: words of 2-5 phones of the 41-phone model
+DECODE_WORDS = 200
 # fixed-denominator SE (phase 10): batch, bucket (frames), utterances, and
 # bench.py:463-499's chain graph (3200 chains of 30 states)
 FD_B, FD_T, FD_UTTS, CHAIN = 16, 400, 48, (3200, 30)
@@ -1423,8 +1445,11 @@ def eval_check(dev, exp: str, cfg_yaml: str, data_yaml: str, what: str = "eval")
     check(f"{what} logits, card vs CPU plain path", got.cpu(), want, TOL["eval_logits"])
 
 
-def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step") -> dict:
-    """Phase 5: fenced train-step time on one fixed batch, then a short profile."""
+def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step",
+                share_of: str = None) -> dict:
+    """Phase 5: fenced train-step time on one fixed batch (with the loaders'
+    extras, such as the on-device simulation's RIR and noise rows), then a
+    short profile."""
     import torch
 
     from pykaldi2_tpu_torch.config import load_config, load_data_config
@@ -1436,11 +1461,11 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step") ->
 
     cfg = load_config(cfg_yaml)
     cfg.data = load_data_config(data_yaml)
-    dataset, feat_fn, _ = build_frontend(cfg.data)
+    dataset, feat_fn, extras_fn = build_frontend(cfg.data)
     cfg.model.input_size = feat_fn.dim
     model = build_model(cfg.model, generator=torch.Generator().manual_seed(0)).to(dev)
     step = make_ce_train_step(model, feat_fn, make_optimizer(cfg.optimizer, model.parameters()))
-    batch_np = next(iter(ChunkDataloader(dataset, B, T, shuffle=False)))
+    batch_np = next(iter(ChunkDataloader(dataset, B, T, shuffle=False, extras_fn=extras_fn)))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1456,30 +1481,36 @@ def step_timing(dev, cfg_yaml: str, data_yaml: str, what: str = "train step") ->
     dt = (time.perf_counter() - t0) / n
     if not math.isfinite(loss):
         fail(f"timed train steps reached loss {loss}")
-    lat = []                    # latency: each step fenced on its own
+    lat, enq = [], []           # latency: each step fenced on its own
     for _ in range(100):
         t1 = time.perf_counter()
         step(batch, gen)
+        enq.append((time.perf_counter() - t1) * 1e3)  # host time until step() returns
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t1) * 1e3)
     lat.sort()
+    enq.sort()
     out = {"step_ms": dt * 1e3, "frames_per_sec": B * T / dt,
            "utt_per_sec": B * T / dt / FRAMES_PER_UTT,
            "fenced_step_ms_p50": lat[49], "fenced_step_ms_p90": lat[89],
+           "enqueue_ms_p50": enq[49],
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     print(f"{what}: {out['step_ms']:.3f} ms mean over {n} queued steps | "
           f"{out['frames_per_sec']:.0f} frames/s | {out['utt_per_sec']:.2f} utt/s "
           f"(frames/s / {FRAMES_PER_UTT:g}) | fenced step p50 {lat[49]:.3f} ms, p90 "
-          f"{lat[89]:.3f} ms (100 steps) | peak {out['peak_mem_gib']:.2f} GiB", flush=True)
+          f"{lat[89]:.3f} ms, host enqueue p50 {enq[49]:.3f} ms (100 steps) | peak "
+          f"{out['peak_mem_gib']:.2f} GiB", flush=True)
 
-    out["device_busy_share"] = profile_steps(lambda: step(batch, gen), 3, f"{what} profile")
+    out["device_busy_share"], out["device_ops_per_step"] = profile_steps(
+        lambda: step(batch, gen), 3, f"{what} profile", share_of=share_of)
     return out
 
 
-def profile_steps(fn, n: int, what: str, top: int = 15, share_of: str = None) -> float:
-    """Profile n calls of fn; print the device busy share and the top kernels
-    by device time per call (and, with ``share_of``, the share of device time
-    of the kernels whose name holds it); returns the busy share."""
+def profile_steps(fn, n: int, what: str, top: int = 15, share_of: str = None) -> tuple:
+    """Profile n calls of fn; print the device busy share, the device
+    operations (kernels and copies) a call and the top kernels by device time
+    per call (and, with ``share_of``, the share of device time of the kernels
+    whose name holds it); returns (busy share, device operations a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1497,16 +1528,18 @@ def profile_steps(fn, n: int, what: str, top: int = 15, share_of: str = None) ->
            and not getattr(e, "is_user_annotation", False)
            and not e.key.startswith("Optimizer.")]
     busy_us = sum(_self_device_us(e) for e in evs)
+    ops = sum(e.count for e in evs) / n
     print(f"{what}, {n} steps: device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-          f"wall ({100 * busy_us / wall_us:.1f}%); top kernels by device time:", flush=True)
+          f"wall ({100 * busy_us / wall_us:.1f}%), {ops:.0f} device operations a step; top "
+          f"kernels by device time:", flush=True)
     for e in sorted(evs, key=lambda e: -_self_device_us(e))[:top]:
         print(f"  {_self_device_us(e) / (n * 1e3):9.3f} ms/step  x{e.count // n:<5d} "
               f"{e.key[:90]}", flush=True)
     if share_of:
-        mine = sum(_self_device_us(e) for e in evs if share_of in e.key)
+        mine = sum(_self_device_us(e) for e in evs if share_of in e.key.lower())
         print(f"{what}: {share_of} {mine / (n * 1e3):.3f} ms/step, {100 * mine / busy_us:.1f}% "
               f"of device time", flush=True)
-    return busy_us / wall_us
+    return busy_us / wall_us, ops
 
 
 def _self_device_us(event) -> float:
@@ -1911,6 +1944,430 @@ def fixed_den_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> 
     return row, block_launches
 
 
+def timed_prefetch(module, waits: list):
+    """Wrap ``module.device_prefetch`` so each batch's wait on the loader is
+    appended to ``waits`` (s); returns the original to put back."""
+    real = module.device_prefetch
+
+    def wrapper(*a, **kw):
+        it = real(*a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield batch
+
+    module.device_prefetch = wrapper
+    return real
+
+
+def sim_data_yaml(root: str, data_yaml: str, name: str, on_device: bool, stats: str) -> str:
+    """Phase 3's corpus with the recipe's simulation block verbatim
+    (examples/librispeech/data.yaml:32-50) and its CMVN settings."""
+    import yaml
+
+    with open(data_yaml) as f:
+        d = yaml.safe_load(f)
+    with open(os.path.join(HERE, "examples", "librispeech", "data.yaml")) as f:
+        recipe = yaml.safe_load(f)
+    d["simulation"] = dict(recipe["simulation"], on_device=on_device)
+    if stats:
+        d["feat"]["cmvn"] = dict(recipe["feat"]["cmvn"], stats_path=stats)
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def sim_ce_run(dev, what: str, cfg_yaml: str, data_yaml: str, exp: str, base_ms: float):
+    """train_ce under simulation with the loader's wait per batch recorded;
+    K1-K3 must launch."""
+    from pykaldi2_tpu_torch.bin import train_ce
+
+    waits = []
+    real = timed_prefetch(train_ce, waits)
+    t0 = time.perf_counter()
+    try:
+        launches, steps = train_ce_run(dev, what, cfg_yaml, data_yaml, exp)
+    finally:
+        train_ce.device_prefetch = real
+    wall = time.perf_counter() - t0
+    need_launches(what, launches, positive=("fbank", "lstm_fwd", "lstm_bwd"))
+    rest = waits[1:] or waits
+    print(f"{what}: {steps} steps in {wall:.2f} s; loader wait {1e3 * waits[0]:.1f} ms before "
+          f"the first batch, then {1e3 * sum(rest) / len(rest):.1f} ms a step (max "
+          f"{1e3 * max(rest):.1f}) against a {base_ms:.2f} ms queued train step (phase 5)",
+          flush=True)
+    return launches
+
+
+def simulation_phase(dev, root: str, cfg_yaml: str, data_yaml: str, base: dict) -> None:
+    """Phase 11: the recipe's simulation block on the flagship CE path, on
+    the host (a) and on the device (b)."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.bin import compute_cmvn_stats
+    from pykaldi2_tpu_torch.config import load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import ChunkDataloader
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+    from pykaldi2_tpu_torch.simulation.device import apply_simulation, draw_simulation
+
+    t_phase = time.perf_counter()
+    host_yaml = sim_data_yaml(root, data_yaml, "sim_host_stats.yaml", False, None)
+    stats = os.path.join(root, "cmvn_sim.stats")
+    zero_counts()
+    t0 = time.perf_counter()
+    if compute_cmvn_stats.main(["-data", host_yaml, "-output", stats], device=str(dev)) != 0:
+        fail("compute_cmvn_stats.main failed under host simulation")
+    got = read_counts()
+    need_launches("compute_cmvn_stats path (host simulation)", got, positive=("fbank",))
+    print(f"compute_cmvn_stats (host simulation): {time.perf_counter() - t0:.2f} s, "
+          f"{got['fbank']} K1 launches", flush=True)
+    host_yaml = sim_data_yaml(root, data_yaml, "sim_host.yaml", False, stats)
+    sim_ce_run(dev, "CE + host simulation", cfg_yaml, host_yaml,
+               os.path.join(root, "exp_sim_host"), base["step_ms"])
+
+    dev_yaml = sim_data_yaml(root, data_yaml, "sim_device.yaml", True, stats)
+    sim_ce_run(dev, "CE + on-device simulation", cfg_yaml, dev_yaml,
+               os.path.join(root, "exp_sim_device"), base["step_ms"])
+    dcfg = load_data_config(dev_yaml)
+    dataset, _feat_fn, extras_fn = build_frontend(dcfg)
+    batch = next(iter(ChunkDataloader(dataset, B, T, shuffle=False, extras_fn=extras_fn)))
+    s = batch["wave"].shape[1]
+    if batch["sim_rir"].shape != (B, 8000) or batch["sim_noise"].shape != (B, s):
+        fail(f"sim_rir {batch['sim_rir'].shape} / sim_noise {batch['sim_noise'].shape}, "
+             f"expected ({B}, 8000) / ({B}, {s})")
+    uids = [f"utt{i:04d}" for i in range(B)]
+    extras_fn(uids, s)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        extras_fn(uids, s)
+    extras_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"on-device simulation: sim_rir {batch['sim_rir'].shape}, sim_noise "
+          f"{batch['sim_noise'].shape}; host batch_extras {extras_ms:.1f} ms a batch of {B}",
+          flush=True)
+    # apply_simulation on the card against the CPU, the same draws and tensors
+    draws = draw_simulation(torch.Generator().manual_seed(0), B, dcfg.simulation)
+    shift = dcfg.feat.fbank.frame_opts.window_shift
+    sm = torch.repeat_interleave(torch.from_numpy(batch["mask"]).float(), shift, dim=-1)
+    sm = torch.nn.functional.pad(sm, (0, max(s - sm.shape[-1], 0)))[:, :s]
+    args = [torch.from_numpy(batch[k]) for k in ("wave", "sim_rir", "sim_noise")]
+    want = apply_simulation(*args, *draws, sm)
+    got = apply_simulation(*[a.to(dev) for a in args], *[d.to(dev) for d in draws], sm.to(dev))
+    scale = float(want.abs().max())
+    check(f"apply_simulation [{B}, {s}] card vs CPU (max|out| {scale:.0f})", got.cpu(), want,
+          SIM_TOL * scale)
+    sim = step_timing(dev, cfg_yaml, dev_yaml, "CE + on-device simulation step", share_of="fft")
+    print(f"on-device simulation adds {sim['step_ms'] - base['step_ms']:.3f} ms to the queued "
+          f"step ({base['step_ms']:.3f} -> {sim['step_ms']:.3f}) and "
+          f"{sim['fenced_step_ms_p50'] - base['fenced_step_ms_p50']:.3f} ms to the fenced p50; "
+          f"host enqueue p50 {base['enqueue_ms_p50']:.3f} -> {sim['enqueue_ms_p50']:.3f} ms, "
+          f"device operations a step {base['device_ops_per_step']:.0f} -> "
+          f"{sim['device_ops_per_step']:.0f}", flush=True)
+    print(f"phase 11 (simulation): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> None:
+    """Phase 12: ``bin/decode.main -decoder host`` over phase 9's corpus with
+    phase 9's SE MMI checkpoint and a free word-loop graph at the CLI's beams;
+    then the forward's split, one lattice's size at those beams, and the
+    lattice flags on 8 utterances (``decode_lattice_run``)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from pykaldi2_tpu_torch.bin import decode
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data import kaldi_io
+    from pykaldi2_tpu_torch.data.dataset import SpeechDataset
+    from pykaldi2_tpu_torch.decode.decoder import LatticeDecoder
+    from pykaldi2_tpu_torch.graph import HmmTopology, TransitionModel, make_decode_graph
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
+    from pykaldi2_tpu_torch.pipeline import FeaturePipeline
+    from pykaldi2_tpu_torch.utils import load_checkpoint
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(12)
+    tm = TransitionModel(HmmTopology.three_state(range(1, SE_PHONES + 1)))
+    lexicon = {f"w{i:03d}": [[int(p) for p in rng.randint(1, SE_PHONES + 1, rng.randint(2, 6))]]
+               for i in range(DECODE_WORDS)}
+    word_ids = {w: i + 1 for i, w in enumerate(lexicon)}
+    t0 = time.perf_counter()
+    g = make_decode_graph(tm, lexicon, word_ids)
+    graph, words = os.path.join(root, "decode_graph.fst.txt"), os.path.join(root, "words.txt")
+    g.write_text(graph)
+    with open(words, "w") as f:
+        f.write("<eps> 0\n" + "".join(f"{w} {i}\n" for w, i in word_ids.items()))
+    print(f"decode graph: {DECODE_WORDS} words of 2-5 phones, {g.num_states} states, "
+          f"{g.num_arcs} arcs, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    with open(se_data) as f:
+        corpus = yaml.safe_load(f)
+    ref = os.path.join(root, "decode_ref.txt")
+    with open(ref, "w") as f:
+        for uid, _ in kaldi_io.read_scp(corpus["wav_scp"]):
+            f.write(uid + " " + " ".join(rng.choice(list(word_ids), rng.randint(5, 13))) + "\n")
+    cfg = load_config(se_cfg)
+    cfg.data = load_data_config(se_data)
+    dataset = SpeechDataset.from_config(cfg.data)
+    prior = os.path.join(root, "decode_prior.npy")
+    np.save(prior, priors_from_counts(count_labels(dataset.labels.values(), SENONES)))
+    threads = min(os.cpu_count() or 1, 16)
+    dump = os.path.join(root, "decode_post.ark")
+    argv = ["-config", se_cfg, "-data", se_data, "-model", ckpt, "-graph", graph,
+            "-words", words, "-ref", ref, "-prior", prior, "-num_threads", str(threads),
+            "-dump_ark", dump, "-hyp_out", os.path.join(root, "decode.hyp")]
+
+    fwd_ms, utt_ms = [], []
+    make_forward, search = decode.make_forward, LatticeDecoder.decode
+
+    def timed_forward(*a, **kw):
+        fn = make_forward(*a, **kw)
+
+        def forward(batch):
+            t1 = time.perf_counter()
+            out = fn(batch)  # returns host memory: the device work is done
+            fwd_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return forward
+
+    def timed_search(self, loglikes):
+        t1 = time.perf_counter()
+        out = search(self, loglikes)
+        utt_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    decode.make_forward, LatticeDecoder.decode = timed_forward, timed_search
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = decode.main(argv, device=str(dev))
+    finally:
+        decode.make_forward, LatticeDecoder.decode = make_forward, search
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        fail(f"decode.main returned {rc}")
+    print(f"decode path launches: {json.dumps(launches)}", flush=True)
+    need_launches("decode path", launches, positive=("fbank", "lstm_fwd"), zero=("lstm_bwd",))
+    hyps = [line.split() for line in open(os.path.join(root, "decode.hyp"))]
+    frames = sum(dataset.utt_num_frames(u) for u in dataset.utt_ids)
+    audio_s = frames * 0.01
+    if len(hyps) != len(dataset.utt_ids) or len(utt_ms) != len(hyps):
+        fail(f"decode wrote {len(hyps)} hypotheses after {len(utt_ms)} searches for "
+             f"{len(dataset.utt_ids)} utterances")
+    print(f"decode: {len(hyps)} utterances, {audio_s:.1f} s of audio in {wall:.2f} s wall "
+          f"(real-time factor {audio_s / wall:.1f} x); forward {np.mean(fwd_ms):.2f} ms a batch "
+          f"on the card ({len(fwd_ms)} batches of <= 8, min {min(fwd_ms):.2f}, max "
+          f"{max(fwd_ms):.2f}); host search {np.mean(utt_ms):.1f} ms an utterance (median "
+          f"{np.median(utt_ms):.1f}, max {max(utt_ms):.1f}; {threads} threads; beam 16, "
+          f"max_active 7000)", flush=True)
+    # two utterances' scaled log-likelihoods: the card's dump against the
+    # plain versions on the CPU
+    feat_fn = FeaturePipeline(cfg.data.feat).for_eval()
+    cfg.model.input_size = feat_fn.dim
+    model = build_model(cfg.model)
+    load_checkpoint(ckpt, model)
+    forward = make_forward(model, feat_fn, np.load(prior), 0.1, torch.device("cpu"))
+    posts = dict(kaldi_io.read_scp(dump + ".scp"))
+    for uid in dataset.utt_ids[:2]:
+        utt = dataset.get(uid)
+        want = forward({"wave": torch.from_numpy(utt.wave[None]),
+                        "mask": torch.ones(1, utt.num_frames)})[0]
+        got = kaldi_io.read_scp_entry(posts[uid], "mat")
+        if got.shape != want.shape:
+            fail(f"dumped log-likelihoods of {uid}: {got.shape}, expected {want.shape}")
+        check(f"decode log-likelihoods {uid} ({utt.num_frames} frames), card vs CPU plain path",
+              torch.from_numpy(got), torch.from_numpy(want), TOL["eval_logits"])
+    forward_split(dev, cfg, ckpt, np.load(prior), dataset)
+    # one utterance's lattice at the CLI's beams, emitted but not post-processed
+    ll = kaldi_io.read_scp_entry(posts[dataset.utt_ids[0]], "mat")
+    t0 = time.perf_counter()
+    lat, _frames, _sc = LatticeDecoder(g).decode_lattice(ll, with_frames=True)
+    print(f"decode lattice of {dataset.utt_ids[0]} ({len(ll)} frames) at beam 16, max_active "
+          f"7000, lattice beam 8: {lat.num_states} states, {lat.num_arcs} arcs, searched and "
+          f"emitted in {time.perf_counter() - t0:.2f} s", flush=True)
+    os.remove(dump)
+    decode_lattice_run(dev, root, argv, dataset, ref)
+    print(f"phase 12 (decode): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def forward_split(dev, cfg, ckpt: str, log_prior, dataset) -> None:
+    """The decode forward of one batch of 8, as ``decode.make_forward`` runs
+    it, split by CUDA events into features (K1), the model (K2, the output
+    layer), the fp32 log-softmax/prior/scale and the copy to pageable host
+    memory; a copy into pinned memory is timed beside it."""
+    import torch
+
+    from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
+    from pykaldi2_tpu_torch.data.prefetch import device_prefetch
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.pipeline import FeaturePipeline
+    from pykaldi2_tpu_torch.utils import load_checkpoint
+
+    feat_fn = FeaturePipeline(cfg.data.feat).for_eval()
+    cfg.model.input_size = feat_fn.dim
+    model = build_model(cfg.model).to(dev)
+    load_checkpoint(ckpt, model)
+    model.eval()
+    lp = torch.as_tensor(log_prior, dtype=torch.float32, device=dev)
+    loader = SeqDataloader(dataset, BucketSpec(boundaries=(200, 400, 800, 1600, 3200),
+                                               batch_sizes=8), shuffle=False)
+    batch = next(iter(device_prefetch(loader, dev)))
+    batch.pop("utt_ids")
+    parts = ("features", "model", "log_softmax/prior/scale", "copy to pageable host")
+    ms = {k: [] for k in parts + ("copy to pinned host", "host wall")}
+    pinned = None
+    with torch.no_grad():
+        for rep in range(8):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            feats = feat_fn(batch)
+            ev[1].record()
+            logits = model(feats, batch["mask"])
+            ev[2].record()
+            out = 0.1 * (torch.log_softmax(logits.to(torch.float32), dim=-1) - lp)
+            ev[3].record()
+            host = out.cpu().numpy()
+            ev[4].record()
+            wall = (time.perf_counter() - t0) * 1e3
+            if pinned is None:
+                pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                ev[4].record()
+            pinned.copy_(out)
+            ev[5].record()
+            torch.cuda.synchronize()
+            if rep >= 3:  # the first calls warm up the allocator and the kernels
+                for i, k in enumerate(parts):
+                    ms[k].append(ev[i].elapsed_time(ev[i + 1]))
+                ms["copy to pinned host"].append(ev[4].elapsed_time(ev[5]))
+                ms["host wall"].append(wall)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"decode forward split, one batch {tuple(host.shape)} ({host.nbytes / 2**20:.1f} MiB "
+          f"fp32), mean of 5 (CUDA events): " + ", ".join(f"{k} {v:.3f} ms"
+                                                           for k, v in mean.items()), flush=True)
+
+
+def decode_lattice_run(dev, root: str, argv: list, dataset, ref: str) -> None:
+    """run.sh stage 5's lattice flags (``-lattice_out x.ark -oracle``) and
+    its consensus extra (``-mbr -ctm_out``) through ``decode.main`` on the
+    first 8 utterances, the lattice ark read back. The lattice tools fold
+    epsilons state by state in Python (as the reference's do); on this
+    random-weight model a lattice at max_active 7000 holds hundreds of
+    thousands of states (printed above), so this run keeps the CLI's beam
+    and lattice beam and narrows max_active to 20. It runs on one thread,
+    since the tools hold the GIL, and prints each tool's host ms an
+    utterance."""
+    import contextlib
+    import io
+
+    import yaml
+
+    from pykaldi2_tpu_torch.bin import decode
+    from pykaldi2_tpu_torch.decode import lattice, mbr
+    from pykaldi2_tpu_torch.decode.decoder import LatticeDecoder
+    from pykaldi2_tpu_torch.decode.lattice_ark import read_lattice_ark, write_lattice_ark
+
+    t_run = time.perf_counter()
+    uids = dataset.utt_ids[:8]
+    opts = dict(zip(argv[::2], argv[1::2]))
+    with open(opts["-data"]) as f:
+        data = yaml.safe_load(f)
+    scp = os.path.join(root, "decode_lat_wav.scp")
+    with open(data["wav_scp"]) as f, open(scp, "w") as out:
+        out.writelines(line for line in f if line.split()[0] in uids)
+    data["wav_scp"] = scp
+    data_yaml = os.path.join(root, "decode_lat_data.yaml")
+    with open(data_yaml, "w") as f:
+        yaml.safe_dump(data, f)
+    sub_ref = os.path.join(root, "decode_lat_ref.txt")
+    with open(ref) as f, open(sub_ref, "w") as out:
+        out.writelines(line for line in f if line.split()[0] in uids)
+    lat_ark, ctm, hyp = (os.path.join(root, n) for n in ("decode.lat.ark", "decode.ctm",
+                                                         "decode_lat.hyp"))
+    run = ["-config", opts["-config"], "-data", data_yaml, "-model", opts["-model"],
+           "-graph", opts["-graph"], "-words", opts["-words"], "-ref", sub_ref,
+           "-prior", opts["-prior"], "-num_threads", "1", "-max_active", "20",
+           "-hyp_out", hyp, "-lattice_out", lat_ark, "-oracle", "-mbr", "-ctm_out", ctm]
+
+    ms = {"search + lattice": [], "lattice_word_fst": [], "lattice_word_fst_timed": [],
+          "mbr_decode": []}
+    sizes = []
+    real = {"search + lattice": (LatticeDecoder, "decode_lattice"),
+            "lattice_word_fst": (lattice, "lattice_word_fst"),
+            "lattice_word_fst_timed": (mbr, "lattice_word_fst_timed"),
+            "mbr_decode": (mbr, "mbr_decode")}
+    saved = {k: getattr(owner, name) for k, (owner, name) in real.items()}
+
+    def timed(key):
+        fn = saved[key]
+
+        def wrapper(*a, **kw):
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            ms[key].append((time.perf_counter() - t1) * 1e3)
+            if key == "search + lattice":
+                sizes.append((out[0].num_states, out[0].num_arcs))
+            return out
+        return wrapper
+
+    for k, (owner, name) in real.items():
+        setattr(owner, name, timed(k))
+    printed = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = decode.main(run, device=str(dev))
+    finally:
+        for k, (owner, name) in real.items():
+            setattr(owner, name, saved[k])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(printed.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"decode.main with the lattice flags returned {rc}")
+    need_launches("decode lattice path", launches, positive=("fbank", "lstm_fwd"),
+                  zero=("lstm_bwd",))
+    hyps = {line.split()[0]: line.split()[1:] for line in open(hyp)}
+    lats = read_lattice_ark(lat_ark)
+    if sorted(hyps) != sorted(uids) or sorted(lats) != sorted(uids):
+        fail(f"decode with the lattice flags: hypotheses for {sorted(hyps)}, lattices for "
+             f"{sorted(lats)}, expected {sorted(uids)}")
+    for uid, f in lats.items():
+        if f.num_states == 0 or not f.finals or f.start < 0:
+            fail(f"lattice of {uid} read back with {f.num_states} states, {len(f.finals)} finals")
+    again = lat_ark + ".again"
+    write_lattice_ark(again, lats)
+    with open(lat_ark, "rb") as a, open(again, "rb") as b:
+        if a.read() != b.read():
+            fail("the lattice ark read back does not write the same bytes")
+    if "%Oracle WER" not in printed.getvalue():
+        fail("decode -oracle printed no oracle WER")
+    ctm_lines = [line.split() for line in open(ctm)]
+    if (len(ctm_lines) != sum(len(w) for w in hyps.values())
+            or any(len(c) != 6 or c[0] not in hyps for c in ctm_lines)):
+        fail(f"CTM has {len(ctm_lines)} lines for {sum(len(w) for w in hyps.values())} "
+             f"MBR words")
+    mean = {k: sum(v) / max(len(v), 1) for k, v in ms.items()}
+    print(f"decode lattice flags (-lattice_out, -oracle, -mbr -ctm_out; beam 16, lattice "
+          f"beam 8, max_active 20): {len(uids)} utterances in {wall:.2f} s wall on one "
+          f"thread; launches {json.dumps(launches)}; lattices "
+          f"{sum(s[0] for s in sizes) / len(sizes):.0f} states, "
+          f"{sum(s[1] for s in sizes) / len(sizes):.0f} arcs on average; host ms an "
+          f"utterance: "
+          + ", ".join(f"{k} {v:.1f} (max {max(ms[k]):.1f})" for k, v in mean.items())
+          + f"; {len(lats)} lattices read back, {len(ctm_lines)} CTM words", flush=True)
+    print(f"phase 12 lattice run: {time.perf_counter() - t_run:.1f} s", flush=True)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -1959,7 +2416,7 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)  # the trainers resume from checkpoints they find
     exp, cfg_yaml, data_yaml, launches = main_path(dev, root)
     eval_check(dev, exp, cfg_yaml, data_yaml)
-    step_timing(dev, cfg_yaml, data_yaml)
+    base = step_timing(dev, cfg_yaml, data_yaml)
     recurrence_sweep(dev)
     proj_launches, _ = blstmp_path(dev, root, data_yaml)
     launches.update({k: proj_launches[k] for k in ("lstm_proj_fwd", "lstm_proj_bwd")})
@@ -1969,6 +2426,8 @@ def main() -> int:
                              os.path.join(root, "se_smbr", "model.0.npz"))
     rows["block_matvec"], launches["block_matvec"] = fixed_den_phase(
         dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data)
+    simulation_phase(dev, root, cfg_yaml, data_yaml, base)
+    decode_phase(dev, root, se_cfg, se_data, os.path.join(root, "se_mmi", "model.0.npz"))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,19 +1,20 @@
 """Speech dataset: corpus index + on-demand waveform/label loading.
 
-Numpy copy of pykaldi2_tpu/data/dataset.py for the PyTorch port; host-side
-simulation raises until its slice lands. Transition-id alignments are mapped
-to pdf-ids through the port's ``graph/transition_model.py``.
+Numpy copy of pykaldi2_tpu/data/dataset.py for the PyTorch port.
+Transition-id alignments are mapped to pdf-ids through the port's
+``graph/transition_model.py``; an enabled simulation block builds the port's
+host-side ``simulation.Simulator``.
 
 Reference behavior: the ``SpeechDataset``-style class in pykaldi2/data/
 (SURVEY.md §3.1 "Dataset") — reads waveforms + frame alignments, applies the
 on-the-fly Simulator, computes features, returns {utt_id, feat, label}.
 
-TPU-first split: the host dataset returns raw waveforms + labels (+ optional
-host-side simulation for parity testing); featurization and device-side
-simulation happen inside the jitted train step so the front end rides the MXU
-(BASELINE.json north star: "fused Pallas kernels producing HBM-resident
-batches"). A "feats" mode reads precomputed feature arks for Kaldi-artifact
-parity runs.
+Split here: the host dataset returns raw waveforms + labels (after the
+host-side simulation, when it is on); featurization, and the on-device
+simulation when ``simulation.on_device`` moves it there
+(pipeline.build_frontend), happen inside the train step on the device, where
+the front end runs kernel K1 (fbank) or K4 (MFCC). A "feats" mode reads
+precomputed feature arks for Kaldi-artifact parity runs.
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ class SpeechDataset:
       ali: path to alignment ark (binary int-vector ark or text ark); labels
         must already be pdf-ids unless ``tid_to_pdf`` is given.
       frame_opts: used to derive frame counts from waveform lengths.
-      simulate_fn: optional host-side callable wave→wave (parity-mode
-        simulation; the production path simulates on device).
+      simulate_fn: optional host-side callable wave→wave (a Simulator;
+        ``simulation.on_device`` moves all but speed perturbation into the
+        train step instead).
       tid_to_pdf: optional int array mapping transition-ids → pdf-ids.
     """
 
@@ -80,12 +82,13 @@ class SpeechDataset:
     def from_config(cls, cfg: DataConfig, simulate_fn=None, tid_to_pdf=None):
         frame_opts = cfg.feat.fbank.frame_opts if cfg.feat.type == "fbank" else cfg.feat.mfcc.frame_opts
         if simulate_fn is None and cfg.simulation.enabled:
-            raise NotImplementedError(
-                "host-side simulation (simulation/simulator.py) is not ported yet; "
-                "it comes with the simulation slice (ROADMAP.md Queue 1)")
+            from pykaldi2_tpu_torch.simulation.simulator import Simulator
+
+            simulate_fn = Simulator(cfg.simulation, samp_freq=frame_opts.samp_freq,
+                                    frame_shift=frame_opts.window_shift)
         if tid_to_pdf is None and cfg.label_ark and not cfg.ali_are_pdf_ids:
-            # transition-id alignments must be mapped tid→pdf before training
-            # or out-of-range labels clamp silently in jitted gathers
+            # transition-id alignments must be mapped tid→pdf before training,
+            # or the loss gathers rows by transition-ids as if they were pdfs
             if not cfg.trans_model:
                 raise ValueError(
                     "data.ali_are_pdf_ids is false but data.trans_model is unset; "

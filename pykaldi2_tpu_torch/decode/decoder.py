@@ -1,7 +1,8 @@
 """ctypes binding of the native lattice decoder (native/latdec.cc).
 
 Port of pykaldi2_tpu/decode/decoder.py: the same C ABI (``latdec_new``,
-``latdec_search``, ``latdec_emit_lattice``, ``latdec_free``), loaded from the
+``latdec_decode``, ``latdec_search``, ``latdec_emit_lattice``,
+``latdec_free``), loaded from the
 port's own build. At first use (or when the source is newer) ``g++`` compiles
 ``native/latdec.cc`` into ``build/native/liblatdec.so`` at the repository
 root, without ``-march=native``, so the library runs on whichever x86-64 host
@@ -17,6 +18,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+from typing import List, Tuple
 
 import numpy as np
 
@@ -63,6 +65,9 @@ def _load():
                                    ctypes.c_int, fp, ctypes.c_float, ctypes.c_int,
                                    ctypes.c_float]
         lib.latdec_free.argtypes = [ctypes.c_void_p]
+        lib.latdec_decode.restype = ctypes.c_int
+        lib.latdec_decode.argtypes = [ctypes.c_void_p, fp, ctypes.c_int, ctypes.c_int,
+                                      ip, ctypes.c_int, ip, fp]
         lib.latdec_search.restype = ctypes.c_int
         lib.latdec_search.argtypes = [ctypes.c_void_p, fp, ctypes.c_int,
                                       ctypes.c_int, ip, ip, fp]
@@ -86,36 +91,43 @@ class LatticeDecoder:
     """Beam decoder over a pdf-labeled FST (``graph.compile.expand_to_pdf_fst``).
 
     Equivalent to the reference's MappedLatticeFasterRecognizer usage: feed
-    acoustic-scaled pseudo-log-likelihoods, get time-synchronous lattices as
-    DenseFsa for the banded forward-backward. One handle is stateful: use
-    one per thread.
+    acoustic-scaled pseudo-log-likelihoods, get words / alignments, or
+    time-synchronous lattices as DenseFsa (for the banded forward-backward
+    and the word-lattice tools). One handle is stateful: use one per thread.
     """
 
-    def __init__(self, graph: Fst, beam: float = 16.0, max_active: int = 7000,
+    def __init__(self, graph, beam: float = 16.0, max_active: int = 7000,
                  lattice_beam: float = 8.0, word_penalty: float = 0.0):
-        """word_penalty: insertion penalty added to every word-emitting arc.
-        Epsilon (ilabel==0) arcs must carry olabel==0: the C++ traceback reads
-        word labels off emitting arcs only."""
+        """graph: an ``Fst`` or a ``graph.vfst.VectorFst`` (HCLG-scale arc
+        tables load without per-arc Python). word_penalty: insertion penalty
+        added to every word-emitting arc. Epsilon (ilabel==0) arcs must carry
+        olabel==0: the C++ traceback reads word labels off emitting arcs
+        only."""
         lib = _load()
-        src, dst, il, ol, wt = [], [], [], [], []
-        for s in range(graph.num_states):
-            for a in graph.arcs[s]:
-                src.append(s)
-                dst.append(a.nextstate)
-                il.append(a.ilabel)
-                ol.append(a.olabel)
-                wt.append(a.weight)
-        il = np.asarray(il, np.int32)
-        ol = np.asarray(ol, np.int32)
-        finals = np.full(graph.num_states, np.inf, np.float32)
-        for s, w in graph.finals.items():
-            finals[s] = -w
+        if isinstance(graph, Fst):
+            src, dst, il, ol, wt = [], [], [], [], []
+            for s in range(graph.num_states):
+                for a in graph.arcs[s]:
+                    src.append(s)
+                    dst.append(a.nextstate)
+                    il.append(a.ilabel)
+                    ol.append(a.olabel)
+                    wt.append(a.weight)
+            il = np.asarray(il, np.int32)
+            ol = np.asarray(ol, np.int32)
+            wt = np.asarray(wt, np.float32)
+            finals = np.full(graph.num_states, np.inf, np.float32)
+            for s, w in graph.finals.items():
+                finals[s] = -w
+        else:  # VectorFst arc table
+            src, dst, il, ol, wt = graph.src, graph.dst, graph.ilabel, graph.olabel, graph.weight
+            finals = np.where(np.isfinite(graph.final), -graph.final,
+                              np.float32(np.inf)).astype(np.float32)
         bad = (il == 0) & (ol != 0)
         if bad.any():
             raise ValueError(f"{int(bad.sum())} epsilon-input arcs carry word "
                              "olabels; push words onto emitting arcs first")
-        cost = -np.asarray(wt, np.float32) + np.where(ol != 0, np.float32(word_penalty),
-                                                      np.float32(0.0))
+        cost = -wt + np.where(ol != 0, np.float32(word_penalty), np.float32(0.0))
         self._src = np.ascontiguousarray(src, np.int32)
         self._dst = np.ascontiguousarray(dst, np.int32)
         self._il = np.ascontiguousarray(il, np.int32)
@@ -133,6 +145,20 @@ class LatticeDecoder:
         if getattr(self, "_h", None):
             self._lib.latdec_free(self._h)
             self._h = None
+
+    def decode(self, loglikes: np.ndarray) -> Tuple[List[int], np.ndarray, float]:
+        """loglikes [T, P] (scaled) → (word ids, per-frame pdfs [T], log score)."""
+        ll = np.ascontiguousarray(loglikes, np.float32)
+        t, p = ll.shape
+        max_words = t + 1
+        words = np.zeros(max_words, np.int32)
+        pdfs = np.zeros(t, np.int32)
+        score = ctypes.c_float()
+        n = self._lib.latdec_decode(self._h, _fptr(ll), t, p, _iptr(words), max_words,
+                                    _iptr(pdfs), ctypes.byref(score))
+        if n < 0:
+            raise RuntimeError("decoding failed (no surviving tokens — widen beam?)")
+        return words[:n].tolist(), pdfs, float(score.value)
 
     def decode_lattice(self, loglikes: np.ndarray, with_frames: bool = False):
         """loglikes [T, P] → (time-synchronous lattice as DenseFsa, best score).

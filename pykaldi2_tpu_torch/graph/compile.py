@@ -1,30 +1,31 @@
 """Graph compilers: phone-level FSTs → dense emitting graphs / decoder FSTs.
 
 Copy of the part of pykaldi2_tpu/graph/compile.py that sequence training
-needs (reference behavior: Kaldi's mkgraph.sh + compile-train-graphs): the
-HMM expansion that emits
+and decoding need (reference behavior: Kaldi's mkgraph.sh +
+compile-train-graphs): the HMM expansion that emits
 
   * DenseFsa graphs (every arc emits a pdf) — the LF-MMI-style denominator
     graph from a phone bigram (``make_den_graph``);
   * pdf-labeled FSTs (ilabel = pdf+1, olabel = word) for the host decoder
     (``expand_to_pdf_fst``), e.g. the phone-loop denominator HCLG that
-    ``train_se -on_the_fly`` decodes lattices over.
+    ``train_se -on_the_fly`` decodes lattices over, and the small word
+    decoding graph H∘L∘G (``make_decode_graph``) ``bin/decode`` reads.
 
 HMM expansion convention: an arc *into* an HMM state emits that state's pdf,
 so entry arcs emit the first frame of a phone and self-loops emit subsequent
 frames; phone-level junction states are collapsed away (product of in/out
-ports), leaving a fully emitting graph. Numerator and word-level decoding
-graphs come with the decode slice.
+ports), leaving a fully emitting graph. Numerator graphs and the HCLG-scale
+word-LM graph come with the graph-building slice.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pykaldi2_tpu_torch.graph.fst import EPS, Fst
+from pykaldi2_tpu_torch.graph.fst import EPS, Fst, make_lexicon_fst
 from pykaldi2_tpu_torch.graph.transition_model import TransitionModel
 from pykaldi2_tpu_torch.ops.fsa import DenseFsa
 
@@ -152,3 +153,36 @@ def make_den_graph(tm: TransitionModel, phone_lm: dict) -> DenseFsa:
         if np.isfinite(lf[p]):
             fst.set_final(junction[p], float(lf[p]))
     return expand_to_dense(fst, tm)
+
+
+# ---------------------------------------------------------------------------
+# Decoding graph (HCLG-style, CI phones: H ∘ L ∘ G)
+# ---------------------------------------------------------------------------
+
+
+def make_decode_graph(
+    tm: TransitionModel,
+    lexicon: Dict[str, List[List[int]]],
+    word_ids: Dict[str, int],
+    grammar: Optional[Fst] = None,
+    sil_phone: int = 0,
+    sil_prob: float = 0.0,
+) -> Fst:
+    """pdf-level decoding FST (ilabel=pdf+1, olabel=word id).
+
+    grammar: word acceptor G (e.g. unigram/bigram LM); None → free word loop.
+    Small-graph path (fully emitting, junctions collapsed); the word-LM
+    scale HCLG builder comes with the graph-building slice.
+    """
+    lex = make_lexicon_fst(lexicon, word_ids, sil_phone, sil_prob)
+    if grammar is None:
+        grammar = Fst()
+        s = grammar.add_state()
+        grammar.set_start(s)
+        grammar.set_final(s, 0.0)
+        uni = float(np.log(1.0 / max(len(word_ids), 1)))
+        for w, wid in word_ids.items():
+            grammar.add_arc(s, wid, wid, uni, s)
+    phone_fst = lex.compose(grammar).remove_input_epsilons()
+    return expand_to_pdf_fst(phone_fst, tm)
+

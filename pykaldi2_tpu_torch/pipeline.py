@@ -1,7 +1,7 @@
 """Feature pipeline on the device: waveform batch → normalized features.
 
-Port of pykaldi2_tpu/pipeline.py:30-277 without on-device simulation. The
-trainer calls it on the raw waveform batch already on the device, so
+Port of pykaldi2_tpu/pipeline.py. The trainer calls it on the raw waveform
+batch already on the device, so the on-device simulation (when configured),
 framing, fbank or MFCC, CMVN, deltas and splicing run there; the standard
 log-power fbank goes through the fused kernel K1 and MFCC through K4.
 """
@@ -26,6 +26,8 @@ from pykaldi2_tpu_torch.frontend import (
 )
 from pykaldi2_tpu_torch.frontend.cmvn import cmvn_mean_std
 from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_mfcc
+from pykaldi2_tpu_torch.simulation.device import (DeviceSimulator, apply_simulation,
+                                                  draw_simulation)
 
 
 def base_feature_dim(cfg: FeatConfig) -> int:
@@ -65,8 +67,15 @@ class FeaturePipeline:
     batch's device. Dither draws from the ``generator`` passed in.
     """
 
-    def __init__(self, cfg: FeatConfig, cmvn_stats: Optional[np.ndarray] = None):
+    def __init__(self, cfg: FeatConfig, cmvn_stats: Optional[np.ndarray] = None,
+                 device_sim_cfg=None):
+        """device_sim_cfg: a SimulationConfig with on_device=True — a call
+        with a generator then applies reverb/noise/gain to the waveform batch
+        (simulation/device.py) before feature extraction, using the
+        sim_rir/sim_noise rows DeviceSimulator.batch_extras attached.
+        Training only: eval copies (for_eval) drop it with the dither."""
         self.cfg = cfg
+        self.device_sim_cfg = device_sim_cfg
         self.mean = None
         self.scale = None
         if cfg.cmvn.stats_path and cmvn_stats is None:
@@ -115,7 +124,9 @@ class FeaturePipeline:
         return self.speaker_cmvn is not None or self.warp_bank is not None
 
     def batch_extras(self, utt_ids, n_samples=None) -> dict:
-        """Host-side per-row arrays for a batch (loaders attach these).
+        """Host-side per-row arrays for a batch (loaders attach these;
+        ``n_samples`` is the batch's waveform length, used by other extras
+        providers like DeviceSimulator and ignored here).
 
         An empty utt_id marks a padding row (masked downstream) and gets
         neutral values; a real utterance missing from the tables raises,
@@ -134,11 +145,12 @@ class FeaturePipeline:
         return out
 
     def for_eval(self) -> "FeaturePipeline":
-        """Deterministic copy for eval paths: dither off."""
+        """Deterministic copy for eval paths: dither and simulation off."""
         out = copy.copy(self)  # shallow: shares stats, swaps config
         out.cfg = copy.deepcopy(self.cfg)
         out.cfg.fbank.frame_opts.dither = 0.0
         out.cfg.mfcc.frame_opts.dither = 0.0
+        out.device_sim_cfg = None  # never simulate at eval
         return out
 
     def _use_fused(self) -> bool:
@@ -155,9 +167,37 @@ class FeaturePipeline:
         mf = self.cfg.mfcc
         return mf.frame_opts.dither == 0.0 and not (mf.use_energy and not mf.raw_energy)
 
+    def _simulate_on_device(self, batch: dict, generator: torch.Generator) -> torch.Tensor:
+        """The on-device reverb/noise/gain stage (reference:
+        pipeline.py:204-230): draws from ``generator``, then applies."""
+        sim = self.device_sim_cfg
+        wave = batch["wave"]
+        sample_mask = None
+        mask = batch.get("mask")
+        if mask is not None:
+            # approximate per-sample validity from the frame mask so padded
+            # rows don't skew the SNR's speech-power estimate
+            fo = (self.cfg.fbank.frame_opts if self.cfg.type == "fbank"
+                  else self.cfg.mfcc.frame_opts)
+            sm = torch.repeat_interleave(mask.to(torch.float32), fo.window_shift, dim=-1)
+            s = wave.shape[-1]
+            if sm.shape[-1] < s:
+                sm = torch.nn.functional.pad(sm, (0, s - sm.shape[-1]))
+            sample_mask = sm[..., :s]
+        reverb_gate, snr, noise_gate, gain = draw_simulation(generator, wave.shape[0], sim)
+        return apply_simulation(
+            wave, batch.get("sim_rir") if sim.reverb.use_reverb else None,
+            batch.get("sim_noise") if sim.noise.use_noise else None,
+            reverb_gate, snr, noise_gate, gain, sample_mask)
+
     def __call__(self, batch: dict, generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
+        """Simulation (training only: with a generator and device_sim_cfg)
+        draws from ``generator`` first, then the dither."""
         cfg = self.cfg
+        if self.device_sim_cfg is not None and generator is not None and "wave" in batch:
+            batch = dict(batch)
+            batch["wave"] = self._simulate_on_device(batch, generator)
         warp_sel = batch.get("warp_id") if self.warp_bank is not None else None
         if "feats" in batch:
             feats = batch["feats"].to(torch.float32)
@@ -202,16 +242,59 @@ class FeaturePipeline:
         return feats
 
 
+def compose_extras(*fns):
+    """Merge several ``(utt_ids, n_samples) → dict`` extras providers into
+    one loader hook (FeaturePipeline.batch_extras, DeviceSimulator); None
+    entries are skipped; returns None when nothing remains."""
+    fns = [f for f in fns if f is not None]
+    if not fns:
+        return None
+
+    def extras(utt_ids, n_samples=None):
+        out = {}
+        for f in fns:
+            out.update(f(utt_ids, n_samples))
+        return out
+
+    return extras
+
+
 def build_frontend(data_cfg):
-    """(dataset, feat_fn, extras_fn) for the trainer. On-device simulation is
-    not ported yet and raises."""
+    """(dataset, feat_fn, extras_fn) for the trainers, honoring on-device
+    simulation: with simulation.on_device, reverb/noise/gain move into the
+    train step (DeviceSimulator samples the tensors on the host;
+    FeaturePipeline applies them on the device) and the host keeps only
+    duration-changing speed perturbation.
+
+    Note: -on_the_fly SE decodes denominator lattices from the undistorted
+    forward (eval pipeline) while training applies the distortion — prefer
+    host-side simulation (on_device: false) for that mode so lattices and
+    gradients see the same audio."""
     from pykaldi2_tpu_torch.data.dataset import SpeechDataset
 
     sim = data_cfg.simulation
+    dev_sim = None
+    dev_cfg = None
+    dcfg = data_cfg
     if sim.enabled and sim.on_device:
-        raise NotImplementedError(
-            "on-device simulation (simulation/device.py) is not ported yet; it "
-            "comes with the simulation slice (ROADMAP.md Queue 1)")
-    dataset = SpeechDataset.from_config(data_cfg)
-    feat_fn = FeaturePipeline(data_cfg.feat)
-    return dataset, feat_fn, feat_fn.batch_extras if feat_fn.has_extras else None
+        if not (data_cfg.wav_scp or (data_cfg.hdf5 and data_cfg.hdf5_kind == "wave")):
+            raise ValueError(
+                "simulation.on_device needs a waveform corpus (wav_scp or "
+                "hdf5 kind=wave); feats-mode corpora would silently skip "
+                "the distortion stage")
+        dcfg = copy.deepcopy(data_cfg)
+        host = dcfg.simulation
+        host.reverb.use_reverb = False
+        host.noise.use_noise = False
+        host.perturb.use_gain = False
+        host.enabled = host.perturb.use_speed
+        fo = (data_cfg.feat.fbank.frame_opts if data_cfg.feat.type == "fbank"
+              else data_cfg.feat.mfcc.frame_opts)
+        dev_sim = DeviceSimulator(sim, samp_freq=fo.samp_freq, frame_shift=fo.window_shift)
+        dev_cfg = sim
+    dataset = SpeechDataset.from_config(dcfg)
+    feat_fn = FeaturePipeline(data_cfg.feat, device_sim_cfg=dev_cfg)
+    extras_fn = compose_extras(
+        feat_fn.batch_extras if feat_fn.has_extras else None,
+        dev_sim.batch_extras if dev_sim is not None else None)
+    return dataset, feat_fn, extras_fn

@@ -30,8 +30,9 @@ def ce_forward(model: NnetAM, feat_fn: FeaturePipeline, batch: dict,
     """Returns (sum_nll, count, correct) as device scalars.
 
     ``mask`` is frame validity (feeds the model); supervision is mask AND
-    labels >= 0 — they differ when labels are absent. Dither and dropout
-    draw, in that order, from ``generator``."""
+    labels >= 0 — they differ when labels are absent. The on-device
+    simulation (when configured), dither and dropout draw, in that order,
+    from ``generator``."""
     feats = feat_fn(batch, generator=generator)
     mask = batch["mask"].to(torch.float32)
     logits = model(feats, mask, train=train, generator=generator)

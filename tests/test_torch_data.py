@@ -116,11 +116,30 @@ def test_wav_reader_matches(corpus):
 
 
 def test_unported_dataset_options_raise(corpus):
+    """An enabled simulation block, which raised before the simulation
+    modules were ported, now builds the port's host Simulator: every
+    utterance, waveform and labels, equals the JAX dataset's bit for bit."""
+    from pykaldi2_tpu.config import DataConfig as JDataConfig
+
+    from pykaldi2_tpu_torch.simulation.simulator import Simulator
+
     paths, _, _ = corpus
-    cfg = DataConfig(wav_scp=paths["wav_scp"], label_ark=paths["ali"])
-    cfg.simulation.enabled = True
-    with pytest.raises(NotImplementedError, match="simulation"):
-        SpeechDataset.from_config(cfg)
+    cfgs = [cls(wav_scp=paths["wav_scp"], label_ark=paths["ali"])
+            for cls in (DataConfig, JDataConfig)]
+    for cfg in cfgs:
+        cfg.feat.fbank.frame_opts.dither = 0.0
+        cfg.simulation.enabled = True
+        cfg.simulation.noise.use_noise = True
+        cfg.simulation.perturb.use_speed = True
+    ds, jds = SpeechDataset.from_config(cfgs[0]), JDataset.from_config(cfgs[1])
+    assert isinstance(ds.simulate_fn, Simulator)
+    assert ds.utt_ids == jds.utt_ids
+    for i, uid in enumerate(ds.utt_ids):
+        a = ds.get(uid, np.random.RandomState(i))
+        b = jds.get(uid, np.random.RandomState(i))
+        assert a.num_frames == b.num_frames
+        np.testing.assert_array_equal(a.wave, b.wave)
+        np.testing.assert_array_equal(a.labels, b.labels)
 
 
 @pytest.mark.parametrize("text_ark", [False, True])
