@@ -86,7 +86,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``-num_threads``, ``-prior``, ``-dump_ark`` and ``-ref``: K1 and K2
      launched and K3 not, forward ms per batch, host search ms per
      utterance, real-time factor and WER (meaningless with these weights),
-     and two utterances' dumped log-likelihoods against the CPU run.
+     and two utterances' dumped log-likelihoods against the CPU run;
+ 13. K2 at B=1 (align's launch: H=1024, one 512-frame bucket) against its
+     plain version, two calls bit-equal; fault F3's routing: one forward and
+     backward of an LSTM at H=1040 and an LSTMP at H=48, P=64 on the card
+     against the CPU, with no kernel launched and the slow route's warning
+     logged, and H=1024 taking K2/K3; run.sh stage 0, ``bin/align.main
+     -trans_model`` with phase 12's checkpoint over phase 9's utterances,
+     transcripts of random words of phase 12's lexicon (K1 and K2 launched,
+     K3 not; int32 pdf-ids below 123, one per frame; forward and
+     ``fsa_viterbi`` ms an utterance by CUDA events; one utterance against
+     the same CLI on the CPU); stage 4, order-2 and order-3 ``train_arpa``
+     LMs over those transcripts, ``bin/build_graph.main decode -arpa`` and
+     ``den -ali`` (sizes, host seconds), and ``bin/decode.main -graph
+     hclg.npz`` on 8 utterances; ``bin/lattice_tool.main`` on the word
+     lattices of the 2 longest transcripts from that HCLG at the CLI's
+     beams, from log-likelihoods peaked on stage 0's alignments (N-best,
+     rescoring from the order-3 to the order-2 LM, posterior pruning; host
+     ms an utterance) and
+     ``bin/compare_posteriors.main`` on phase 12's card and CPU arks.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -145,6 +163,12 @@ BLOCK_TOL = 3e-5
 SIM_TOL = 1e-5
 # phase 12's free word loop: words of 2-5 phones of the 41-phone model
 DECODE_WORDS = 200
+# phase 13: utterances aligned on the card, and align's frame bucket for
+# phase 9's 4-4.5 s utterances (the reference pads to a power of two >= 128)
+ALIGN_UTTS, ALIGN_BUCKET = 96, 512
+# the lattice tools' input: log-likelihoods N(0, LAT_SIGMA) plus LAT_PEAK on
+# the aligned pdf give word lattices of hundreds of states, thousands of arcs
+LAT_SIGMA, LAT_PEAK = 1.0, 2.0
 # fixed-denominator SE (phase 10): batch, bucket (frames), utterances, and
 # bench.py:463-499's chain graph (3200 chains of 30 states)
 FD_B, FD_T, FD_UTTS, CHAIN = 16, 400, 48, (3200, 30)
@@ -2071,11 +2095,14 @@ def simulation_phase(dev, root: str, cfg_yaml: str, data_yaml: str, base: dict) 
     print(f"phase 11 (simulation): {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> None:
+def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> dict:
     """Phase 12: ``bin/decode.main -decoder host`` over phase 9's corpus with
     phase 9's SE MMI checkpoint and a free word-loop graph at the CLI's beams;
     then the forward's split, one lattice's size at those beams, and the
-    lattice flags on 8 utterances (``decode_lattice_run``)."""
+    lattice flags on 8 utterances (``decode_lattice_run``). Returns what
+    phase 13 reuses: the lexicon (dict and file), the word table, the prior
+    and two utterances' log-likelihood arks, the card's and
+    the CPU's."""
     import numpy as np
     import torch
     import yaml
@@ -2097,6 +2124,9 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> None:
     lexicon = {f"w{i:03d}": [[int(p) for p in rng.randint(1, SE_PHONES + 1, rng.randint(2, 6))]]
                for i in range(DECODE_WORDS)}
     word_ids = {w: i + 1 for i, w in enumerate(lexicon)}
+    lex_path = os.path.join(root, "lexicon.txt")
+    with open(lex_path, "w") as f:
+        f.writelines(f"{w} {' '.join(map(str, prons[0]))}\n" for w, prons in lexicon.items())
     t0 = time.perf_counter()
     g = make_decode_graph(tm, lexicon, word_ids)
     graph, words = os.path.join(root, "decode_graph.fst.txt"), os.path.join(root, "words.txt")
@@ -2174,15 +2204,20 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> None:
     load_checkpoint(ckpt, model)
     forward = make_forward(model, feat_fn, np.load(prior), 0.1, torch.device("cpu"))
     posts = dict(kaldi_io.read_scp(dump + ".scp"))
-    for uid in dataset.utt_ids[:2]:
-        utt = dataset.get(uid)
-        want = forward({"wave": torch.from_numpy(utt.wave[None]),
-                        "mask": torch.ones(1, utt.num_frames)})[0]
-        got = kaldi_io.read_scp_entry(posts[uid], "mat")
-        if got.shape != want.shape:
-            fail(f"dumped log-likelihoods of {uid}: {got.shape}, expected {want.shape}")
-        check(f"decode log-likelihoods {uid} ({utt.num_frames} frames), card vs CPU plain path",
-              torch.from_numpy(got), torch.from_numpy(want), TOL["eval_logits"])
+    post_card, post_cpu = (os.path.join(root, f"decode_post_{n}.ark") for n in ("card", "cpu"))
+    with kaldi_io.ArkWriter(post_card) as w_card, kaldi_io.ArkWriter(post_cpu) as w_cpu:
+        for uid in dataset.utt_ids[:2]:
+            utt = dataset.get(uid)
+            want = forward({"wave": torch.from_numpy(utt.wave[None]),
+                            "mask": torch.ones(1, utt.num_frames)})[0]
+            got = kaldi_io.read_scp_entry(posts[uid], "mat")
+            if got.shape != want.shape:
+                fail(f"dumped log-likelihoods of {uid}: {got.shape}, expected {want.shape}")
+            check(f"decode log-likelihoods {uid} ({utt.num_frames} frames), card vs CPU "
+                  f"plain path", torch.from_numpy(got), torch.from_numpy(want),
+                  TOL["eval_logits"])
+            w_card.write(uid, got)
+            w_cpu.write(uid, want)
     forward_split(dev, cfg, ckpt, np.load(prior), dataset)
     # one utterance's lattice at the CLI's beams, emitted but not post-processed
     ll = kaldi_io.read_scp_entry(posts[dataset.utt_ids[0]], "mat")
@@ -2194,6 +2229,8 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> None:
     os.remove(dump)
     decode_lattice_run(dev, root, argv, dataset, ref)
     print(f"phase 12 (decode): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(lexicon=lexicon, lexicon_path=lex_path, words=words, prior=prior,
+                post_card=post_card, post_cpu=post_cpu)
 
 
 def forward_split(dev, cfg, ckpt: str, log_prior, dataset) -> None:
@@ -2254,6 +2291,29 @@ def forward_split(dev, cfg, ckpt: str, log_prior, dataset) -> None:
                                                            for k, v in mean.items()), flush=True)
 
 
+def subset_data(root: str, name: str, data_yaml: str, uids) -> str:
+    """A copy of ``data_yaml`` whose wav.scp holds only ``uids``."""
+    import yaml
+
+    with open(data_yaml) as f:
+        data = yaml.safe_load(f)
+    scp = os.path.join(root, f"{name}_wav.scp")
+    with open(data["wav_scp"]) as f, open(scp, "w") as out:
+        out.writelines(line for line in f if line.split()[0] in uids)
+    data["wav_scp"] = scp
+    path = os.path.join(root, f"{name}_data.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f)
+    return path
+
+
+def subset_lines(src: str, dst: str, uids) -> str:
+    """The lines of ``src`` whose first field is in ``uids``, written to ``dst``."""
+    with open(src) as f, open(dst, "w") as out:
+        out.writelines(line for line in f if line.split()[0] in uids)
+    return dst
+
+
 def decode_lattice_run(dev, root: str, argv: list, dataset, ref: str) -> None:
     """run.sh stage 5's lattice flags (``-lattice_out x.ark -oracle``) and
     its consensus extra (``-mbr -ctm_out``) through ``decode.main`` on the
@@ -2267,8 +2327,6 @@ def decode_lattice_run(dev, root: str, argv: list, dataset, ref: str) -> None:
     import contextlib
     import io
 
-    import yaml
-
     from pykaldi2_tpu_torch.bin import decode
     from pykaldi2_tpu_torch.decode import lattice, mbr
     from pykaldi2_tpu_torch.decode.decoder import LatticeDecoder
@@ -2277,18 +2335,8 @@ def decode_lattice_run(dev, root: str, argv: list, dataset, ref: str) -> None:
     t_run = time.perf_counter()
     uids = dataset.utt_ids[:8]
     opts = dict(zip(argv[::2], argv[1::2]))
-    with open(opts["-data"]) as f:
-        data = yaml.safe_load(f)
-    scp = os.path.join(root, "decode_lat_wav.scp")
-    with open(data["wav_scp"]) as f, open(scp, "w") as out:
-        out.writelines(line for line in f if line.split()[0] in uids)
-    data["wav_scp"] = scp
-    data_yaml = os.path.join(root, "decode_lat_data.yaml")
-    with open(data_yaml, "w") as f:
-        yaml.safe_dump(data, f)
-    sub_ref = os.path.join(root, "decode_lat_ref.txt")
-    with open(ref) as f, open(sub_ref, "w") as out:
-        out.writelines(line for line in f if line.split()[0] in uids)
+    data_yaml = subset_data(root, "decode_lat", opts["-data"], uids)
+    sub_ref = subset_lines(ref, os.path.join(root, "decode_lat_ref.txt"), uids)
     lat_ark, ctm, hyp = (os.path.join(root, n) for n in ("decode.lat.ark", "decode.ctm",
                                                          "decode_lat.hyp"))
     run = ["-config", opts["-config"], "-data", data_yaml, "-model", opts["-model"],
@@ -2367,6 +2415,426 @@ def decode_lattice_run(dev, root: str, argv: list, dataset, ref: str) -> None:
     print(f"phase 12 lattice run: {time.perf_counter() - t_run:.1f} s", flush=True)
 
 
+def k2_single_check(dev) -> None:
+    """Phase 13: K2 at B=1, H=1024 over one 512-frame bucket (align's launch),
+    against its plain version with phase 2's tolerance; two calls on the same
+    inputs must agree bit for bit."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    rng = np.random.RandomState(13)
+    t_len = ALIGN_BUCKET
+    xp = torch.tensor((rng.randn(t_len, 1, 4 * H) * 0.5).astype(np.float32), device=dev)
+    wh = torch.tensor((rng.uniform(-1, 1, (H, 4 * H)) / math.sqrt(H)).astype(np.float32),
+                      device=dev).to(torch.bfloat16)
+    mask = torch.ones(t_len, 1, device=dev)
+    mask[449:] = 0.0
+    got = L.lstm_fwd(xp, wh, mask)
+    again = L.lstm_fwd(xp, wh, mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        fail("K2 at B=1: two calls on the same inputs differ")
+    yp, cp, gp = L.lstm_fwd_plain(xp, wh, mask)
+    what = f"T={t_len} B=1 H={H}"
+    check(f"K2 lstm_fwd ys at {what}", got[0], yp, TOL["lstm_fwd"])
+    check(f"K2 lstm_fwd cs at {what}", got[1], cp, TOL["lstm_fwd"])
+    check(f"K2 lstm_fwd gates (bf16) at {what}", got[2], gp, TOL["lstm_fwd_gates"])
+    print(f"kernel K2 at {what}: {timed(lambda: L.lstm_fwd(xp, wh, mask), n=10):.4f} ms "
+          f"(CUDA events over 10 calls), clusters {L.lstm_clusters(H, dev)}", flush=True)
+
+
+def f3_checks(dev) -> None:
+    """Phase 13, fault F3: an LSTM at H=1040 and an LSTMP at H=48, P=64 (shapes
+    outside the kernels) run one forward and backward on the card against the
+    CPU, with no kernel launched and the slow route's warning logged; the
+    flagship H=1024 still takes K2/K3."""
+    import logging
+
+    import torch
+
+    from pykaldi2_tpu_torch.ops import lstm_cuda as L
+
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    logger = logging.getLogger(L.__name__)
+    handler = Catch(logging.WARNING)
+    logger.addHandler(handler)
+    try:
+        for h, p in ((1040, 0), (48, 64)):
+            what = f"LSTM H={h}" + (f" P={p}" if p else "")
+            gen = torch.Generator().manual_seed(h)
+            t_len, b = 20, 4
+            args = [torch.randn(t_len, b, 4 * h, generator=gen) * 0.5,
+                    (torch.rand(p or h, 4 * h, generator=gen) * 2 - 1) / math.sqrt(h)]
+            if p:
+                args.append((torch.rand(h, p, generator=gen) * 2 - 1) / math.sqrt(h))
+            mask = torch.ones(t_len, b)
+            mask[12:, 1] = 0.0
+            dys = torch.randn(t_len, b, p or h, generator=gen)
+            fn = L.LstmProjSeq if p else L.LstmSeq
+            outs = []
+            warned.clear()
+            zero_counts()
+            for d in ("cpu", dev):
+                leaves = [a.detach().to(d).requires_grad_() for a in args]
+                y = fn.apply(*leaves, mask.to(d))
+                (y * dys.to(d)).sum().backward()
+                outs.append((y.detach().cpu(), [a.grad.cpu() for a in leaves]))
+            launches = read_counts()
+            need_launches(f"{what} (outside the kernels)", launches,
+                          zero=("lstm_fwd", "lstm_bwd", "lstm_proj_fwd", "lstm_proj_bwd"))
+            if not any(f"hidden size {h}" in m for m in warned):
+                fail(f"{what}: the plain route logged no warning ({warned})")
+            (y_cpu, g_cpu), (y_card, g_card) = outs
+            check(f"F3 {what} forward, card (plain route) vs CPU", y_card, y_cpu,
+                  TOL["blstm_out"])
+            worst = max(float((u - v).abs().max() / v.abs().max())
+                        for u, v in zip(g_card, g_cpu))
+            print(f"F3 {what} gradients, card vs CPU: max error relative to each tensor's "
+                  f"max {worst:.3e} (tolerance {TOL['blstm_grad_rel']:g}); kernel launches "
+                  f"0; warned: {warned[0]!r}", flush=True)
+            if not math.isfinite(worst) or worst > TOL["blstm_grad_rel"]:
+                fail(f"F3 {what} gradients disagree: {worst}")
+    finally:
+        logger.removeHandler(handler)
+    gen = torch.Generator().manual_seed(3)
+    xp = (torch.randn(16, 2, 4 * H, generator=gen) * 0.5).to(dev).requires_grad_()
+    wh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / math.sqrt(H)).to(dev)
+    zero_counts()
+    L.LstmSeq.apply(xp, wh.requires_grad_(), torch.ones(16, 2, device=dev)).sum().backward()
+    launches = read_counts()
+    if (launches["lstm_fwd"], launches["lstm_bwd"]) != (1, 1):
+        fail(f"the flagship H={H} did not take K2/K3 once each: {launches}")
+    print(f"F3: H={H} takes K2/K3 ({launches['lstm_fwd']}, {launches['lstm_bwd']} launches)",
+          flush=True)
+
+
+def align_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec: dict) -> dict:
+    """Phase 13, run.sh stage 0: ``bin/align.main -trans_model`` with phase
+    12's checkpoint over the first ALIGN_UTTS utterances of phase 9's corpus,
+    with transcripts of random words of phase 12's lexicon; the forward and
+    ``fsa_viterbi`` timed per utterance by CUDA events; one utterance against
+    the same CLI on the CPU. Returns the paths stage 4 reads."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.bin import align
+    from pykaldi2_tpu_torch.config import load_data_config
+    from pykaldi2_tpu_torch.data import kaldi_io
+    from pykaldi2_tpu_torch.data.dataset import SpeechDataset
+    from pykaldi2_tpu_torch.ops.fb import fsa_viterbi
+
+    t_phase = time.perf_counter()
+    dataset = SpeechDataset.from_config(load_data_config(se_data))
+    rng = np.random.RandomState(13)
+    words = list(dec["lexicon"])
+    # transcripts of 3-8 words for every utterance (4-4.5 s: at 3 frames a
+    # phone and at most 5 phones a word, 8 words take at most 120 frames),
+    # every word of the lexicon used at least once so the LMs cover it
+    stream = list(rng.permutation(words)) + list(rng.choice(words, 6 * len(dataset.utt_ids)))
+    texts = {}
+    for uid in dataset.utt_ids:
+        n = int(rng.randint(3, 9))
+        texts[uid], stream = stream[:n], stream[n:]
+    text = os.path.join(root, "align_text.txt")
+    with open(text, "w") as f:
+        f.writelines(f"{uid} {' '.join(ws)}\n" for uid, ws in texts.items())
+    uids = dataset.utt_ids[:ALIGN_UTTS]
+    sub_text = subset_lines(text, os.path.join(root, "align_text_sub.txt"), uids)
+    mdl = os.path.join(root, "se_corpus", "final.mdl")
+
+    events, captured, state = [], {}, {}
+    make_forward, viterbi = align.make_forward, align.fsa_viterbi
+
+    def with_events(kind, fn, *a):
+        if state["key"] != "card":
+            return fn(*a)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a)
+        ev[1].record()
+        events.append([kind, ev])
+        return out
+
+    def timed_forward(*a, **kw):
+        fn = make_forward(*a, **kw)
+        return lambda wave, mask: with_events("forward", fn, wave, mask)
+
+    def timed_viterbi(obs, graph, num_frames):
+        score, arcs = with_events("viterbi", viterbi, obs, graph, num_frames)
+        if state["key"] not in captured:  # the first utterance's inputs and result
+            captured[state["key"]] = (obs.cpu(), graph.to("cpu"), num_frames.cpu(),
+                                      score.cpu(), arcs.cpu())
+        return score, arcs
+
+    def run(what, argv, device, key):
+        state["key"] = key
+        align.make_forward, align.fsa_viterbi = timed_forward, timed_viterbi
+        try:
+            t0 = time.perf_counter()
+            rc = align.main(argv, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            align.make_forward, align.fsa_viterbi = make_forward, viterbi
+        if rc != 0:
+            fail(f"{what}: align.main returned {rc}")
+        return wall
+
+    ali = os.path.join(root, "align.ark")
+    base = ["-config", se_cfg, "-data", se_data, "-model", ckpt, "-lexicon",
+            dec["lexicon_path"], "-trans_model", mdl]
+    zero_counts()
+    wall = run("stage 0", base + ["-text", sub_text, "-out", ali], str(dev), "card")
+    launches = read_counts()
+    print(f"align path launches: {json.dumps(launches)}", flush=True)
+    need_launches("align path", launches, positive=("fbank", "lstm_fwd"), zero=("lstm_bwd",))
+    got = dict(kaldi_io.read_ark(ali, kind="ivec"))
+    if sorted(got) != sorted(uids):
+        fail(f"align wrote {len(got)} alignments for {len(uids)} utterances")
+    for uid, pdfs in got.items():
+        nf = dataset.utt_num_frames(uid)
+        if pdfs.dtype != np.int32 or pdfs.shape != (nf,) or pdfs.min() < 0 or pdfs.max() >= 123:
+            fail(f"alignment of {uid}: {pdfs.dtype} {pdfs.shape}, range [{pdfs.min()}, "
+                 f"{pdfs.max()}], expected {nf} int32 pdf-ids below 123")
+    score = float(captured["card"][3][0])
+    if not (math.isfinite(score) and score > -1e29):
+        fail(f"align: the first utterance's Viterbi score is {score}")
+    torch.cuda.synchronize()
+    ms = {"forward": [], "viterbi": []}
+    for kind, ev in events:
+        ms[kind].append(ev[0].elapsed_time(ev[1]))
+    frames = sum(dataset.utt_num_frames(u) for u in uids)
+    print(f"align (stage 0): {len(uids)} utterances, {frames} frames, in {wall:.2f} s wall "
+          f"({wall * 1e3 / len(uids):.1f} ms an utterance); per utterance (CUDA events, "
+          f"frames padded to a power of two >= 128): forward {np.mean(ms['forward']):.2f} ms "
+          f"(min {min(ms['forward']):.2f}, max {max(ms['forward']):.2f}), fsa_viterbi "
+          f"{np.mean(ms['viterbi']):.2f} ms (min {min(ms['viterbi']):.2f}, max "
+          f"{max(ms['viterbi']):.2f}); K1 {launches['fbank']}, K2 {launches['lstm_fwd']} "
+          f"launches; first score {score:.2f}", flush=True)
+
+    # the first utterance through the same CLI on the CPU
+    first = uids[0]
+    ali_cpu = os.path.join(root, "align_cpu.ark")
+    one = subset_lines(text, os.path.join(root, "align_text_one.txt"), [first])
+    run("stage 0 on the CPU", base + ["-text", one, "-out", ali_cpu], "cpu", "cpu")
+    want = dict(kaldi_io.read_ark(ali_cpu, kind="ivec"))[first]
+    obs_card, graph, nf, _, arcs_card = captured["card"]
+    obs_cpu, _, _, score_cpu, _ = captured["cpu"]
+    d = check(f"align log-likelihoods of {first} ({int(nf[0])} frames), card vs CPU",
+              obs_card[0, : int(nf[0])], obs_cpu[0, : int(nf[0])], TOL["eval_logits"])
+    # the Viterbi on identical inputs: the CPU's arcs must be the card's
+    s2, a2 = fsa_viterbi(obs_card, graph, nf)
+    if not torch.equal(a2, arcs_card) or abs(float(s2[0]) - score) > 1e-5 * abs(score):
+        fail(f"fsa_viterbi on the card's log-likelihoods: CPU arcs equal "
+             f"{torch.equal(a2, arcs_card)}, scores {float(s2[0])} vs {score}")
+    same = float((got[first] == want).mean())
+    if same < 1.0:
+        # two Viterbi-best paths of inputs within d a frame: on the CPU's
+        # inputs the card's path scores within 2·T·d of the CPU's best. The
+        # path's score is summed in fp64; the CPU's best is fp32, two
+        # additions a frame, each within 2^-24 of |best|: T·2^-23·|best|
+        t = int(nf[0])
+        arcs = arcs_card[0, :t]
+        path = float((graph.weight[arcs].double()
+                      + obs_cpu[0, torch.arange(t), graph.pdf[arcs]].double()).sum()
+                     + float(graph.final[graph.dst[arcs[-1]]]))
+        best = float(score_cpu[0])
+        if path < best - 2 * t * d - t * 2.0 ** -23 * abs(best):
+            fail(f"align of {first}: the card's path scores {path} on the CPU's inputs, "
+                 f"{best} best ({same:.3f} of frames agree)")
+    print(f"align of {first}: card vs CPU CLI, {same:.4f} of frames equal; fsa_viterbi on "
+          f"identical inputs equal (arcs, score {score:.3f})", flush=True)
+    print(f"phase 13 stage 0: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(ali=ali, mdl=mdl, texts=texts)
+
+
+def graph_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec: dict,
+                stage0: dict) -> dict:
+    """Phase 13, run.sh stage 4: order-2 and order-3 ``train_arpa`` LMs over
+    stage 0's transcripts, ``bin/build_graph.main decode -arpa`` (HCLG) and
+    ``den -ali``, each graph's size and host seconds; then ``bin/decode.main
+    -graph hclg.npz`` on 8 utterances (stage 5 on stage 4's graph)."""
+    import contextlib
+    import io
+
+    from pykaldi2_tpu_torch.bin import build_graph, decode
+    from pykaldi2_tpu_torch.graph.arpa import train_arpa, write_arpa
+    from pykaldi2_tpu_torch.graph.vfst import VectorFst
+    from pykaldi2_tpu_torch.ops.fsa import load_fsa
+
+    t_phase = time.perf_counter()
+    sents = list(stage0["texts"].values())
+    lms = {}
+    for order in (2, 3):
+        lms[order] = os.path.join(root, f"lm{order}.arpa")
+        t0 = time.perf_counter()
+        write_arpa(train_arpa(sents, order=order), lms[order])
+        print(f"train_arpa order {order} over {len(sents)} transcripts: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    hclg, den = os.path.join(root, "hclg.npz"), os.path.join(root, "den.npz")
+    words = os.path.join(root, "hclg_words.txt")
+    t0 = time.perf_counter()
+    rc = build_graph.main(["decode", "-lexicon", dec["lexicon_path"], "-arpa", lms[3], "-out",
+                           hclg, "-words_out", words, "-trans_model", stage0["mdl"]])
+    hclg_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"build_graph decode -arpa returned {rc}")
+    g = VectorFst.load(hclg)
+    t0 = time.perf_counter()
+    rc = build_graph.main(["den", "-ali", stage0["ali"], "-trans_model", stage0["mdl"],
+                           "-out", den])
+    den_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"build_graph den returned {rc}")
+    dg = load_fsa(den)
+    if g.num_arcs == 0 or dg.num_arcs == 0:
+        fail("build_graph wrote an empty graph")
+    print(f"build_graph (stage 4): HCLG of {len(dec['lexicon'])} words, order-3 LM: "
+          f"{g.num_states} states, {g.num_arcs} arcs in {hclg_s:.2f} s on the host; den graph "
+          f"from {ALIGN_UTTS} alignments: {dg.num_states} states, {dg.num_arcs} arcs in "
+          f"{den_s:.2f} s", flush=True)
+
+    uids = sorted(stage0["texts"])[:8]
+    data = subset_data(root, "hclg_decode", se_data, uids)
+    ref = os.path.join(root, "hclg_ref.txt")
+    with open(ref, "w") as f:
+        f.writelines(f"{u} {' '.join(stage0['texts'][u])}\n" for u in uids)
+    hyp = os.path.join(root, "hclg.hyp")
+    argv = ["-config", se_cfg, "-data", data, "-model", ckpt, "-graph", hclg, "-words",
+            words, "-ref", ref, "-prior", dec["prior"], "-hyp_out", hyp, "-num_threads",
+            str(min(os.cpu_count() or 1, 8))]
+    printed = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = decode.main(argv, device=str(dev))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(printed.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"decode.main -graph hclg.npz returned {rc}")
+    need_launches("HCLG decode path", launches, positive=("fbank", "lstm_fwd"),
+                  zero=("lstm_bwd",))
+    hyps = [line.split()[0] for line in open(hyp)]
+    if sorted(hyps) != uids or "%WER" not in printed.getvalue():
+        fail(f"decode on the HCLG: hypotheses for {hyps}, expected {uids}")
+    print(f"decode on stage 4's HCLG: {len(uids)} utterances in {wall:.2f} s wall; launches "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"phase 13 stage 4: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(lms=lms, hclg=hclg, words=words)
+
+
+def lattice_tools_phase(root: str, dec: dict, stage0: dict, stage4: dict) -> None:
+    """Phase 13, the lattice tools on the host, on word lattices of the two
+    utterances with the longest transcripts (LibriSpeech's hold ~33 words,
+    these 3-8) from stage 4's HCLG at the decode CLI's beams (16, max_active
+    7000, lattice beam 8), as ``decode -lattice_out`` emits them. Phase 12's
+    random-weight model gives flat log-likelihoods, whose word lattices are
+    either a single path (max_active 20: 5-6 states) or millions of arcs; so
+    the log-likelihoods here are N(0, LAT_SIGMA) with LAT_PEAK added along
+    the utterance's stage 0 alignment, which gives word lattices of hundreds
+    of states and thousands of arcs with the transcript on the best path.
+    Then ``bin/lattice_tool.main``: N-best, LM rescoring from the order-3 LM
+    in the HCLG to the order-2 LM, posterior pruning, each tool's host ms an
+    utterance; and ``bin/compare_posteriors.main`` on phase 12's card and CPU
+    arks."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pykaldi2_tpu_torch.bin import compare_posteriors, lattice_tool
+    from pykaldi2_tpu_torch.bin.decode import load_graph
+    from pykaldi2_tpu_torch.data import kaldi_io
+    from pykaldi2_tpu_torch.decode.decoder import LatticeDecoder
+    from pykaldi2_tpu_torch.decode.lattice import lattice_word_fst
+    from pykaldi2_tpu_torch.decode.lattice_ark import read_lattice_ark, write_lattice_ark
+
+    t_phase = time.perf_counter()
+    alis = dict(kaldi_io.read_ark(stage0["ali"], kind="ivec"))
+    uids = sorted(sorted(alis, key=lambda u: (-len(stage0["texts"][u]), u))[:2])
+    hclg = load_graph(stage4["hclg"])
+    rng = np.random.RandomState(14)
+    lats, sizes, ms_lat = {}, [], []
+    for uid in uids:
+        pdfs = alis[uid]
+        ll = rng.randn(len(pdfs), 3 * SE_PHONES).astype(np.float32) * LAT_SIGMA
+        ll[np.arange(len(pdfs)), pdfs] += LAT_PEAK
+        t0 = time.perf_counter()
+        lat, frames, _ = LatticeDecoder(hclg).decode_lattice(ll, with_frames=True)
+        lats[uid] = lattice_word_fst(lat, loglikes=ll, frames=frames)
+        ms_lat.append((time.perf_counter() - t0) * 1e3)
+        sizes.append((len(pdfs), lat.num_states, lats[uid].num_states, lats[uid].num_arcs))
+    lat2 = os.path.join(root, "lat2.ark")
+    write_lattice_ark(lat2, lats)
+    out = {n: os.path.join(root, n) for n in ("nbest.txt", "rescored.ark", "pruned.ark",
+                                                 "rescored.hyp")}
+    lms = stage4["lms"]
+    runs = {"nbest 10": ["-nbest", "10", "-nbest_out", out["nbest.txt"]],
+            "rescore lm3 -> lm2": ["-arpa_old", lms[3], "-arpa_new", lms[2], "-rescored_out",
+                                   out["rescored.ark"], "-best_path", out["rescored.hyp"]],
+            "prune_beam 4": ["-prune_beam", "4.0", "-pruned_out", out["pruned.ark"]]}
+    ms = {}
+    for what, extra in runs.items():
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = lattice_tool.main(["-lattices", lat2, "-words", stage4["words"]] + extra)
+        ms[what] = (time.perf_counter() - t0) * 1e3 / len(lats)
+        if rc != 0:
+            fail(f"lattice_tool {what} returned {rc}")
+    nb = [line.split() for line in open(out["nbest.txt"])]
+    if sorted({x[0].rsplit("-", 1)[0] for x in nb}) != uids or len(nb) > 10 * len(uids):
+        fail(f"lattice_tool -nbest 10 wrote {len(nb)} lines")
+    # the peaked log-likelihoods make each transcript the lattice's best path
+    for uid in uids:
+        best = next(x[2:] for x in nb if x[0] == f"{uid}-1")
+        if best != [str(w) for w in stage0["texts"][uid]]:
+            fail(f"lattice_tool -nbest: the best path of {uid} is {best}, the transcript "
+                 f"{stage0['texts'][uid]}")
+    for name in ("rescored.ark", "pruned.ark"):
+        back = read_lattice_ark(out[name])
+        if sorted(back) != uids or any(not f.finals for f in back.values()):
+            fail(f"lattice_tool wrote {name} with {sorted(back)}")
+    pruned = read_lattice_ark(out["pruned.ark"])
+    print(f"word lattices of {uids} ({[len(stage0['texts'][u]) for u in uids]} words) "
+          f"from stage 4's HCLG (beam 16, max_active 7000, lattice "
+          f"beam 8; log-likelihoods N(0, {LAT_SIGMA:g}) + {LAT_PEAK:g} on the aligned pdf): "
+          + "; ".join(f"{t} frames, search lattice {s} states, word lattice {ws} states "
+                      f"{wa} arcs" for t, s, ws, wa in sizes)
+          + f"; search + lattice_word_fst {np.mean(ms_lat):.1f} ms an utterance on the host; "
+          f"pruned at beam 4 to {[(f.num_states, f.num_arcs) for f in pruned.values()]} "
+          f"(states, arcs)", flush=True)
+    print("lattice_tool on those word lattices: host ms an utterance: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + "; each best path is its transcript", flush=True)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = compare_posteriors.main([dec["post_card"], dec["post_cpu"], "-atol",
+                                      str(TOL["eval_logits"])])
+    print(printed.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"compare_posteriors on phase 12's card and CPU arks returned {rc}")
+    print(f"phase 13 lattice tools: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def align_graph_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec: dict) -> None:
+    """Phase 13: K2 at B=1, F3's routing, run.sh stages 0 and 4, the lattice tools."""
+    t_phase = time.perf_counter()
+    k2_single_check(dev)
+    f3_checks(dev)
+    stage0 = align_phase(dev, root, se_cfg, se_data, ckpt, dec)
+    stage4 = graph_phase(dev, root, se_cfg, se_data, ckpt, dec, stage0)
+    lattice_tools_phase(root, dec, stage0, stage4)
+    print(f"phase 13 (align, graphs, lattice tools): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
 
 def main() -> int:
     try:
@@ -2427,7 +2895,9 @@ def main() -> int:
     rows["block_matvec"], launches["block_matvec"] = fixed_den_phase(
         dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data)
     simulation_phase(dev, root, cfg_yaml, data_yaml, base)
-    decode_phase(dev, root, se_cfg, se_data, os.path.join(root, "se_mmi", "model.0.npz"))
+    se_ckpt = os.path.join(root, "se_mmi", "model.0.npz")
+    dec = decode_phase(dev, root, se_cfg, se_data, se_ckpt)
+    align_graph_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

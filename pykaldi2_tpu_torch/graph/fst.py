@@ -3,19 +3,19 @@
 Copy of the part of pykaldi2_tpu/graph/fst.py that sequence training and
 decoding need (reference behavior: the slice of OpenFst pykaldi2 exercises
 through graph construction): mutable construction, connection (trim),
-composition, input-epsilon removal, OpenFst-compatible text IO, and the
-lexicon and linear acceptors the decode graph is built from. Weights are
+composition, input-epsilon removal, determinization, weight pushing and
+minimization, OpenFst-compatible text IO, and the lexicon and linear
+acceptors the decode and numerator graphs are built from. Weights are
 **log-probs** (higher = better, additive along paths) — the negation of
 OpenFst tropical costs; text IO negates on the way in and out so
-``fstcompile``-style files interoperate. Determinization, weight pushing
-and minimization come with the graph-building slice.
+``fstcompile``-style files interoperate.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict, deque
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -269,6 +269,200 @@ class Fst:
                 if not advanced:
                     color[s] = BLACK
                     stack.pop()
+
+    def determinize(self, encode_labels: bool = False, delta: float = 1e-6,
+                    max_states: int = 10_000_000) -> "Fst":
+        """Weighted subset determinization (max/tropical over log-probs).
+
+        Replaces OpenFst's ``fstdeterminize`` for the slice the graph build
+        exercises (SURVEY.md §3.2 "OpenFst"). The input must be
+        epsilon-free (run :meth:`remove_input_epsilons` first).
+
+        By default the FST must be an acceptor (ilabel == olabel on every
+        arc). With ``encode_labels=True`` a transducer is determinized over
+        encoded (ilabel, olabel) pairs — OpenFst's encode→determinize→decode
+        recipe — which is exact for any transducer but yields determinism
+        w.r.t. the label *pairs*, not ilabels alone.
+
+        Residual weights inside subsets are quantized to ``delta`` so that
+        cyclic (e.g. backoff-LM) inputs converge; a non-determinizable input
+        trips the ``max_states`` guard and raises.
+        """
+        if self.start < 0:
+            return Fst()
+        for s in range(self.num_states):
+            for a in self.arcs[s]:
+                if a.ilabel == EPS and a.olabel == EPS:
+                    raise ValueError("determinize requires an epsilon-free FST "
+                                     "(run remove_input_epsilons first)")
+                if not encode_labels and a.ilabel != a.olabel:
+                    raise ValueError("determinize: transducer arcs need "
+                                     "encode_labels=True")
+
+        def q(w: float) -> float:
+            return round(w / delta) * delta
+
+        out = Fst()
+        start_subset = ((self.start, 0.0),)
+        index: Dict[tuple, int] = {start_subset: out.add_state()}
+        out.set_start(0)
+        queue = deque([start_subset])
+        while queue:
+            subset = queue.popleft()
+            cur = index[subset]
+            # final weight: best residual+final over member states
+            fin = None
+            by_label: Dict[tuple, Dict[int, float]] = {}
+            for (st, res) in subset:
+                fw = self.finals.get(st)
+                if fw is not None and (fin is None or res + fw > fin):
+                    fin = res + fw
+                for a in self.arcs[st]:
+                    key = (a.ilabel, a.olabel) if encode_labels else (a.ilabel, a.ilabel)
+                    d = by_label.setdefault(key, {})
+                    w = res + a.weight
+                    if a.nextstate not in d or w > d[a.nextstate]:
+                        d[a.nextstate] = w
+            if fin is not None:
+                out.set_final(cur, fin)
+            for (il, ol), dests in sorted(by_label.items()):
+                w_max = max(dests.values())
+                nxt = tuple(sorted((ns, q(w - w_max)) for ns, w in dests.items()))
+                if nxt not in index:
+                    if len(index) >= max_states:
+                        raise ValueError(
+                            f"determinize exceeded {max_states} subsets — "
+                            "input is likely non-determinizable in the "
+                            "tropical semiring")
+                    index[nxt] = out.add_state()
+                    queue.append(nxt)
+                out.add_arc(cur, il, ol, w_max, index[nxt])
+        return out
+
+    def push_weights(self, delta: float = 1e-9, max_iters: Optional[int] = None) -> "Fst":
+        """Push weights toward the initial state (max/log-prob potentials).
+
+        Potential V(s) = best log-prob from s to a final state; each arc
+        becomes w + V(ns) − V(s) and finals become f − V(s), so all
+        equivalent suffixes carry identical weights — the precondition for
+        weighted minimization. V(start) is folded back into the start
+        state's outgoing arcs/final so total path weights are preserved
+        exactly. Raises on a positive-weight cycle (diverging potentials).
+
+        If the start state has incoming arcs (e.g. word-loop graphs), it is
+        split first — the V(start) fold-back is only exact when the start
+        state is entered exactly once per path. Costs at most one extra
+        state in the minimized result.
+        """
+        if self.start >= 0 and any(
+            a.nextstate == self.start
+            for s in range(self.num_states) for a in self.arcs[s]
+        ):
+            split = Fst()
+            for _ in range(self.num_states):
+                split.add_state()
+            for s in range(self.num_states):
+                for a in self.arcs[s]:
+                    split.add_arc(s, a.ilabel, a.olabel, a.weight, a.nextstate)
+            for s, w in self.finals.items():
+                split.set_final(s, w)
+            new_start = split.add_state()
+            for a in self.arcs[self.start]:
+                split.add_arc(new_start, a.ilabel, a.olabel, a.weight, a.nextstate)
+            if self.start in self.finals:
+                split.set_final(new_start, self.finals[self.start])
+            split.set_start(new_start)
+            return split.push_weights()
+        n = self.num_states
+        if n == 0 or self.start < 0:
+            return Fst()
+        NEG = -np.inf
+        V = np.full(n, NEG)
+        for s, w in self.finals.items():
+            V[s] = w
+        iters = max_iters if max_iters is not None else n + 1
+        changed = True
+        it = 0
+        while changed:
+            changed = False
+            it += 1
+            for s in range(n):
+                best = self.finals.get(s, NEG)
+                for a in self.arcs[s]:
+                    if V[a.nextstate] > NEG:
+                        cand = a.weight + V[a.nextstate]
+                        if cand > best:
+                            best = cand
+                if best > V[s] + delta:
+                    V[s] = best
+                    changed = True
+            if it > iters:
+                raise ValueError("push_weights: positive-weight cycle "
+                                 "(potentials diverge)")
+        out = Fst()
+        for _ in range(n):
+            out.add_state()
+        out.set_start(self.start)
+        for s in range(n):
+            vs = 0.0 if s == self.start else (V[s] if V[s] > NEG else 0.0)
+            for a in self.arcs[s]:
+                vn = V[a.nextstate] if V[a.nextstate] > NEG else 0.0
+                out.add_arc(s, a.ilabel, a.olabel, a.weight + vn - vs, a.nextstate)
+            if s in self.finals:
+                out.set_final(s, self.finals[s] - vs)
+        return out
+
+    def minimize(self, delta: float = 1e-6) -> "Fst":
+        """Weighted minimization: push weights, then merge bisimilar states.
+
+        Replaces OpenFst's ``fstminimize`` for our graph-build usage. Moore
+        partition refinement over (ilabel, olabel, quantized weight,
+        next-class) signatures after weight pushing: exactly minimal for
+        deterministic input, and a safe (language-preserving) bisimulation
+        quotient for non-deterministic input.
+        """
+        f = self.connect().push_weights()
+        n = f.num_states
+        if n == 0:
+            return f
+
+        def qw(w: float) -> int:
+            return int(round(w / delta))
+
+        # initial partition: finality + final weight
+        cls = {}
+        part: List[int] = [0] * n
+        for s in range(n):
+            key = (s in f.finals, qw(f.finals.get(s, 0.0)))
+            part[s] = cls.setdefault(key, len(cls))
+        while True:
+            sig_ids: Dict[tuple, int] = {}
+            new_part = [0] * n
+            for s in range(n):
+                sig = (part[s], tuple(sorted(
+                    (a.ilabel, a.olabel, qw(a.weight), part[a.nextstate])
+                    for a in f.arcs[s])))
+                new_part[s] = sig_ids.setdefault(sig, len(sig_ids))
+            if len(sig_ids) == len(cls):
+                break
+            cls = sig_ids
+            part = new_part
+        # build the quotient
+        out = Fst()
+        for _ in range(len(cls)):
+            out.add_state()
+        out.set_start(part[f.start])
+        emitted = set()
+        for s in range(n):
+            c = part[s]
+            if c in emitted:
+                continue
+            emitted.add(c)
+            for a in f.arcs[s]:
+                out.add_arc(c, a.ilabel, a.olabel, a.weight, part[a.nextstate])
+            if s in f.finals:
+                out.set_final(c, f.finals[s])
+        return out
 
     # -- IO ---------------------------------------------------------------
 

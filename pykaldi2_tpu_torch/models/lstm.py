@@ -16,10 +16,14 @@ lstm.py ``LSTMStack`` wrapping ``torch.nn.LSTM``):
 
 Parameters keep the JAX layout: ``wx`` [D, 4H], ``wh`` [H or P, 4H], ``b``
 [4H], ``wp`` [H, P] with a projection, gate order i, f, g, o; ``convert.py``
-maps JAX parameter trees onto them. Unlike the reference, there is no shape
-gate that falls back to a scan: the kernels take H up to 1024 and P up to
-H in multiples of 16 and raise beyond that (the plain versions take any
-shape on the CPU).
+maps JAX parameter trees onto them. As the reference gates its kernels by
+shape (lstm.py:87-103) and runs a scan otherwise, ``LstmSeq``/``LstmProjSeq``
+take the kernels only where ``lstm_cuda.kernel_supported(H, P)`` holds: H
+a multiple of 16 in [16, 1024], P a multiple of 16 in [16, H]. Any other
+shape runs the plain versions (the same math) on the card, with one warning
+per shape, decided from the shape before any launch. A shape inside the gate
+always launches the kernels: one whose clusters the card cannot hold, or
+whose kernel fails, raises.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ lattice-functions.cc LatticeForwardBackwardMmi / LatticeForwardBackwardMpeVarian
                        gradient with respect to obs is the per-frame pdf
                        occupancy gamma (the MMI denominator gradient);
   * ``fsa_occupancies`` — (logZ, gamma) without autograd;
+  * ``fsa_viterbi``  — best path score and per-frame arc sequence (the
+                       forced-alignment primitive of ``bin/align``);
   * ``fsa_expected_accuracy`` — the sMBR/MPE double forward-backward whose
                        gradient is Kaldi's gamma·(c_arc − F).
 
@@ -19,7 +21,7 @@ adds weight and obs, and sums into the destination states (``index_add_``);
 the recursions renormalise per frame (a running log normaliser), so fp32
 never overflows. This is the fallback route of ``fb_dense.pack_graph_auto``
 (graphs that break the state-emission rule) and the reference the other
-routes are tested against. ``fsa_viterbi`` comes with the align slice.
+routes are tested against.
 """
 
 from __future__ import annotations
@@ -139,6 +141,14 @@ def _seg_sum(values: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     return values.new_zeros(values.shape[0], num_segments).index_add_(1, ids, values)
 
 
+def _seg_max(values: Tensor, ids: Tensor, num_segments: int, empty) -> Tensor:
+    """values [B, E] → [B, num_segments] maxima over ids [E]; a segment that
+    no arc enters holds ``empty`` (``jax.ops.segment_max`` gives the dtype's
+    minimum there)."""
+    out = values.new_full((values.shape[0], num_segments), empty)
+    return out.scatter_reduce_(1, ids.expand_as(values), values, "amax", include_self=False)
+
+
 def _alpha_init(g: GraphArrays, batch: int, like: Tensor) -> Tensor:
     """[B, S] log-alpha at t = 0: log 1 on the start state."""
     a = like.new_full((batch, g.num_states), NEG_INF)
@@ -238,6 +248,57 @@ def fsa_occupancies(obs: Tensor, graph: GraphArrays, num_frames: Tensor):
     """(logZ [B], gamma [B, T, P]) without autograd."""
     logz, alphas, norms = _logz_fwd_scan(obs, graph, num_frames)
     return logz, _occupancies(obs, graph, num_frames, logz, alphas, norms)
+
+
+# ---------------------------------------------------------------------------
+# Viterbi (max semiring + backpointers)
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+@torch.no_grad()
+def fsa_viterbi(obs: Tensor, graph: GraphArrays, num_frames: Tensor):
+    """Best-path score and arc sequence: ([B], [B, T] best arc index per frame).
+
+    Per-frame pdf labels are graph.pdf[best_arcs]; t >= num_frames[b] → -1.
+    Ties go as in the reference: the lowest winning arc id per state, the
+    first maximal end state. The frame loop and the backtrace hold no host
+    sync (``active`` stays on the device).
+    """
+    b, t_len, _ = obs.shape
+    g = graph
+    n_arcs = g.src.shape[0]
+    alpha = _alpha_init(g, b, obs)
+    norm = obs.new_zeros(b)
+    e_ids = torch.arange(n_arcs, device=obs.device).expand(b, n_arcs)
+    bps = []
+    for t in range(t_len):
+        score = alpha[:, g.src] + g.weight + obs[:, t][:, g.pdf]          # [B, E]
+        best = _seg_max(score, g.dst, g.num_states, torch.finfo(score.dtype).min)
+        best = torch.clamp(best, min=NEG_INF)
+        # an arc wins if its score equals its state's max (the max selects one
+        # of these very values, so some arc of a live state compares equal)
+        cand = torch.where(score == best[:, g.dst], e_ids, _INT32_MAX)
+        # the lowest winning arc id; where no arc enters, the reference's
+        # negated int32 minimum wraps to -2^31, as -(2^31) does here
+        bp = -_seg_max(-cand, g.dst, g.num_states, 2 ** 31)
+        m2 = best.max(dim=1, keepdim=True).values
+        active = (t < num_frames)[:, None]
+        alpha = torch.where(active, best - m2, alpha)
+        norm = torch.where(active[:, 0], norm + m2[:, 0], norm)
+        bps.append(torch.where(active, bp, -1))
+    total = alpha + g.final
+    best_score = total.max(dim=1).values + norm
+    state = torch.argmax(total, dim=1)                                    # first max
+    arcs = [None] * t_len
+    for t in range(t_len - 1, -1, -1):
+        arc = torch.gather(bps[t], 1, state[:, None])[:, 0]
+        arc = torch.where(t < num_frames, arc, -1)
+        # the reference's gather clamps an out-of-range arc id
+        prev = torch.where(arc >= 0, g.src[torch.clamp(arc, 0, n_arcs - 1)], state)
+        arcs[t], state = arc, prev
+    return best_score, torch.stack(arcs, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,11 @@ Streams stay fp32 at every size: the JAX package's bf16 stream modes
 ``hfull``) are kept in bf16 for the backward, as in the reference.
 
 Each wrapper takes the plain version only for CPU tensors; on CUDA tensors
-it launches its kernel or raises. ``lstm_fwd.launches``,
+it launches its kernel or raises. ``LstmSeq`` and ``LstmProjSeq`` pick the
+route before any launch, as the reference's shape gate (lstm_pallas.py
+``supported``/``supported_proj``) does: the kernels where
+``kernel_supported(h, p)`` holds, else the plain versions on the card,
+logged once per shape. ``lstm_fwd.launches``,
 ``lstm_bwd.launches``, ``lstm_proj_fwd.launches`` and
 ``lstm_proj_bwd.launches`` count kernel launches.
 """
@@ -39,6 +43,8 @@ it launches its kernel or raises. ``lstm_fwd.launches``,
 from __future__ import annotations
 
 import ctypes
+import functools
+import logging
 from typing import Tuple
 
 import torch
@@ -46,6 +52,7 @@ import torch
 from pykaldi2_tpu_torch import device as D
 
 Tensor = torch.Tensor
+log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +268,45 @@ def _check(name: str, t: Tensor, dtype: torch.dtype, shape: tuple, dev: torch.de
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_hidden(h: int):
+def kernel_supported(h: int, p: int = 0) -> bool:
+    """Whether the kernels take an LSTM of hidden size ``h`` (projection
+    ``p``, 0 for none): H a multiple of 16 in [16, 1024]; with a projection,
+    P a multiple of 16 in [16, H]. The reference's shape gate (lstm_pallas.py
+    ``supported``/``supported_proj``), arithmetic on the shape alone: a
+    shape inside it launches the kernels, and a card that cannot hold their
+    clusters (a cluster query's 0) then raises."""
     # the kernels' CTAs (H/8 or H/16) must be co-resident, and one CTA's
     # shared memory holds its Wh slice plus a 64-row staging buffer: both cap
-    # H at 1024
+    # H at 1024. P columns go in 16-wide k-steps; P <= H keeps the clusters'
+    # NP-column blocks of P within the H/16 CTAs, and the shared memory of
+    # the weight slices and the staged state within a block's 227 KB up to
+    # H = P = 1024
     if h < 16 or h % 16 or h > 1024:
+        return False
+    return p == 0 or (p >= 16 and p % 16 == 0 and p <= h)
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_plain(h: int, p: int):
+    log.warning("LSTM with hidden size %d%s is outside the recurrence kernels' shapes: "
+                "it runs the plain versions on the card (slow)", h,
+                f" and projection {p}" if p else "")
+
+
+def _use_kernel(h: int, p: int, dev: torch.device) -> bool:
+    """The route of one recurrence: the kernels on CUDA when they take the
+    shape; the plain versions on the CPU, or on CUDA otherwise (logged once
+    per shape)."""
+    if dev.type != "cuda":
+        return False
+    if kernel_supported(h, p):
+        return True
+    _warn_plain(h, p)
+    return False
+
+
+def _check_hidden(h: int):
+    if not kernel_supported(h):
         raise ValueError(f"LSTM kernels take a hidden size that is a multiple of 16 "
                          f"and at most 1024, got {h}")
 
@@ -375,12 +416,8 @@ lstm_bwd.launches = 0
 
 
 def _check_proj(h: int, p: int):
-    # the LSTM kernels' limit on H, and P columns in 16-wide k-steps; P <= H
-    # keeps the clusters' NP-column blocks of P within the H/16 CTAs, and the
-    # shared memory of the weight slices and the staged state within a block's
-    # 227 KB up to H = P = 1024
     _check_hidden(h)
-    if p < 16 or p % 16 or p > h:
+    if p < 16 or not kernel_supported(h, p):
         raise ValueError(f"LSTMP kernels take a projection size that is a multiple of 16 "
                          f"and at most the hidden size {h}, got {p}")
 
@@ -472,20 +509,24 @@ class LstmSeq(torch.autograd.Function):
     """``LstmSeq.apply(xp, wh, mask) -> ys``: xp [T,B,4H] (input projections
     plus bias), wh [H,4H], mask [T,B] or [T,B,1] → ys [T,B,H]. Same contract
     as ``lstm_seq_pallas`` (lstm_pallas.py:296-330): Wh is rounded to bf16,
-    gradients flow to xp (the gate gradients) and to wh."""
+    gradients flow to xp (the gate gradients) and to wh. K2/K3 where
+    ``kernel_supported`` holds, else the plain versions."""
 
     @staticmethod
     def forward(ctx, xp, wh, mask):
         mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
         wh_b = wh.to(torch.bfloat16).contiguous()
-        ys, cs, gates = lstm_fwd(xp.to(torch.float32).contiguous(), wh_b, mask2)
+        ctx.kernel = _use_kernel(wh.shape[0], 0, xp.device)
+        fwd = lstm_fwd if ctx.kernel else lstm_fwd_plain
+        ys, cs, gates = fwd(xp.to(torch.float32).contiguous(), wh_b, mask2)
         ctx.save_for_backward(wh_b, mask2, ys, cs, gates)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
         wh_b, mask2, ys, cs, gates = ctx.saved_tensors
-        dgates = lstm_bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b)
+        bwd = lstm_bwd if ctx.kernel else lstm_bwd_plain
+        dgates = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b)
         t_len, b, h = ys.shape
         dwh = None
         if ctx.needs_input_grad[1]:
@@ -500,23 +541,25 @@ class LstmProjSeq(torch.autograd.Function):
     projections plus bias), wh [P,4H], wp [H,P], mask [T,B] or [T,B,1] → ys
     [T,B,P] (the projected states). Same contract as ``lstm_seq_proj_pallas``
     (lstm_pallas.py:549-599): Wh and Wp are rounded to bf16, gradients flow
-    to xp (the gate gradients), wh and wp."""
+    to xp (the gate gradients), wh and wp. K5/K6 where ``kernel_supported``
+    holds, else the plain versions."""
 
     @staticmethod
     def forward(ctx, xp, wh, wp, mask):
         mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
         wh_b = wh.to(torch.bfloat16).contiguous()
         wp_b = wp.to(torch.bfloat16).contiguous()
-        ys, cs, gates, hfull = lstm_proj_fwd(xp.to(torch.float32).contiguous(), wh_b, wp_b,
-                                             mask2)
+        ctx.kernel = _use_kernel(wp.shape[0], wp.shape[1], xp.device)
+        fwd = lstm_proj_fwd if ctx.kernel else lstm_proj_fwd_plain
+        ys, cs, gates, hfull = fwd(xp.to(torch.float32).contiguous(), wh_b, wp_b, mask2)
         ctx.save_for_backward(wh_b, wp_b, mask2, ys, cs, gates, hfull)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
         wh_b, wp_b, mask2, ys, cs, gates, hfull = ctx.saved_tensors
-        dgates, dhpm = lstm_proj_bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2,
-                                     wh_b, wp_b)
+        bwd = lstm_proj_bwd if ctx.kernel else lstm_proj_bwd_plain
+        dgates, dhpm = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b, wp_b)
         t_len, b, p = ys.shape
         h = cs.shape[-1]
         dwh = dwp = None

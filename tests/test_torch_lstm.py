@@ -10,6 +10,8 @@ against the fp32 lax.scan; bf16 compute for the input/output GEMMs adds
 ~1e-2 on logits.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -308,3 +310,90 @@ def test_dropout_draws_from_generator():
         b = stack(x, train=True, generator=torch.Generator().manual_seed(1))
         c = stack(x, train=False)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+# the (H, P) grid of the kernels' shape gate: H a multiple of 16 in [16, 1024],
+# P a multiple of 16 in [16, H] (P = 0: no projection)
+SHAPE_GRID = [(h, p) for h in (8, 16, 40, 48, 64, 1000, 1024, 1040, 1536, 2048)
+              for p in (0, 8, 16, 24, 48, 64, 512, 1024, 2048)]
+
+
+@pytest.mark.parametrize("h,p", SHAPE_GRID)
+def test_kernel_shape_predicate(h, p):
+    h_ok = h % 16 == 0 and 16 <= h <= 1024
+    want = h_ok and (p == 0 or (p % 16 == 0 and 16 <= p <= h))
+    assert L.kernel_supported(h, p) is want
+    # on the CPU the plain versions run whatever the shape
+    assert L._use_kernel(h, p, torch.device("cpu")) is False
+
+
+class _NoClusterLib:
+    """A kernel library whose cluster queries say the clusters do not fit
+    (0), and whose launches fail as the card refuses them."""
+    TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
+
+    def pk2_lstm_max_batch(self):
+        return 64
+
+    def pk2_lstm_clusters(self, h, k2, k3):
+        return 0
+
+    def pk2_lstmp_fwd_cluster(self, h, p, c):
+        return 0
+
+    def pk2_lstm_fwd(self, *args):
+        return self.TOO_LARGE
+
+    def pk2_lstmp_fwd(self, *args):
+        return self.TOO_LARGE
+
+
+def test_cuda_route_uses_cluster_queries_and_warns_once(monkeypatch, caplog):
+    """On CUDA the route is decided by the shape alone, before any launch:
+    the cluster queries are never asked, and a shape outside takes the
+    plain versions with one warning per shape. A shape inside whose
+    clusters do not fit (a query's 0) takes the kernel, which raises."""
+    cuda = torch.device("cuda", 0)
+
+    def no_query(*args):
+        raise AssertionError("the route asked a cluster query")
+
+    monkeypatch.setattr(L, "lstm_clusters", no_query)
+    monkeypatch.setattr(L, "lstmp_fwd_cluster", no_query)
+    monkeypatch.setattr(L, "lstmp_bwd_cluster", no_query)
+    L._warn_plain.cache_clear()
+    with caplog.at_level("WARNING", logger=L.__name__):
+        assert L._use_kernel(1024, 0, cuda) is True
+        assert L._use_kernel(1024, 512, cuda) is True
+        for _ in range(3):
+            assert L._use_kernel(512, 0, cuda) is True       # inside: no query
+            assert L._use_kernel(1024, 256, cuda) is True
+            assert L._use_kernel(1040, 0, cuda) is False     # shape
+            assert L._use_kernel(48, 64, cuda) is False      # P > H
+    warned = [r.getMessage() for r in caplog.records]
+    assert len(warned) == 2
+    assert any("hidden size 1040 " in m for m in warned)
+    assert any("hidden size 48 and projection 64" in m for m in warned)
+    L._warn_plain.cache_clear()
+
+    # a card that cannot hold the clusters: the kernels' route raises, and
+    # nothing runs the plain versions in their place. Meta tensors stand in
+    # for CUDA ones (no memory, right shapes and dtypes).
+    monkeypatch.setattr(L, "_lib", lambda: _NoClusterLib())
+    monkeypatch.setattr(L.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(L.D, "current_stream_ptr", lambda dev: None)
+    monkeypatch.setattr(L, "lstm_fwd_plain", no_query)
+    monkeypatch.setattr(L, "lstm_proj_fwd_plain", no_query)
+    meta = torch.device("meta")
+    t_len, b, h, p = 3, 2, 512, 256
+    launches = L.lstm_fwd.launches, L.lstm_proj_fwd.launches
+    with pytest.raises(RuntimeError, match="K2.*cudaError_t 720"):
+        L.lstm_fwd(torch.empty(t_len, b, 4 * h, device=meta),
+                   torch.empty(h, 4 * h, dtype=torch.bfloat16, device=meta),
+                   torch.empty(t_len, b, device=meta))
+    with pytest.raises(RuntimeError, match="K5.*cudaError_t 720"):
+        L.lstm_proj_fwd(torch.empty(t_len, b, 4 * h, device=meta),
+                        torch.empty(p, 4 * h, dtype=torch.bfloat16, device=meta),
+                        torch.empty(h, p, dtype=torch.bfloat16, device=meta),
+                        torch.empty(t_len, b, device=meta))
+    assert (L.lstm_fwd.launches, L.lstm_proj_fwd.launches) == launches
