@@ -104,7 +104,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      beams, from log-likelihoods peaked on stage 0's alignments (N-best,
      rescoring from the order-3 to the order-2 LM, posterior pruning; host
      ms an utterance) and
-     ``bin/compare_posteriors.main`` on phase 12's card and CPU arks.
+     ``bin/compare_posteriors.main`` on phase 12's card and CPU arks;
+ 14. (a) ``bin/train_ce.main`` with ce.yaml's ``type: tdnn`` (5 layers of
+     1024, dilations 1,1,3,3,3, kernel 3) and ``type: transformer`` (4
+     layers of 1024, 8 heads, ffn 2048) at phase 3's batch and optimizer:
+     K1 launched, K2/K3 and K5/K6 not; the card against the CPU on two
+     chunks (logits, loss, gradients); phase 5's timing and profile beside
+     the flagship's; (b) ``bin/train_se.main -on_the_fly -decoder device``
+     under MMI and sMBR at phase 9's settings and max_arcs 800: K1-K3 and
+     K7/K8 or K9/K10 launched, the step split (forward, search, compaction,
+     train) beside phase 9's host-decoder steps, links dropped; on one batch
+     the captured search against the eager loops on the card and (8 rows)
+     on the CPU and K7-K10 on its compacted band against their plain
+     versions; (c)
+     ``bin/decode.main -decoder device`` over phase 12's 96 utterances,
+     checkpoint and word loop at beam 16, max_active 2000, max_arcs 1024,
+     lattice beam 8 (K1/K2 launched; wall, real-time factor, search ms a
+     batch, links dropped, retries, hypotheses equal to phase 12's), then
+     ``-on_device``, and ``-nbest 5`` through the device route on 8
+     utterances at max_active 8 (the lattice tools are Python); (d) on one
+     batch of (b) and of (c) the captured search against the eager one:
+     times a frame, the capture's host time and the device operations a
+     frame of the eager search (the graph's nodes).
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -181,6 +202,33 @@ LATFB = {
     "latfb_smbr_fwd": ("K9", "pykaldi2_tpu/ops/fb_lattice_pallas.py:325", 9, 13),
     "latfb_smbr_bwd": ("K10", "pykaldi2_tpu/ops/fb_lattice_pallas.py:413", 22, 13),
 }
+# phase 14: ce.yaml's other backbones at the flagship's width, and the device
+# search at phase 9's SE settings and phase 12's decode beams
+TDNN = {"type": "tdnn", "hidden_size": H, "tdnn_dilations": [1, 1, 3, 3, 3], "tdnn_kernel": 3}
+TRANSFORMER = {"type": "transformer", "hidden_size": H, "num_layers": LAYERS, "num_heads": 8,
+               "ffn_size": 2048}
+DEV_SE = {"beam": 10.0, "lattice_beam": 4.0, "max_active": 200, "max_arcs": 800}
+DEV_DECODE = {"beam": 16.0, "max_active": 2000, "max_arcs": 1024, "lattice_beam": 8.0}
+# the device route's -nbest run: the word acceptor's epsilon removal is Python
+# per state and arc, seconds a lattice on this random-weight model even at a
+# frontier of 20 (P6), so that run keeps a frontier of 8
+NBEST_ACTIVE = 8
+# backbones card vs CPU on the same features. fp32: cuBLAS against the CPU's
+# fp32 products, sums in other orders (1e-6 relative). bf16: the same operands
+# and fp32 sums, but a sum that lands on the other side of a bf16 rounding
+# boundary (ulp 2^-8 of a layer-normed activation) flips that activation for
+# the next product, and flips carry on through the layers: on a random
+# full-width TDNN the conv outputs drift 4.8e-6, 2.9e-4, 1.6e-3, 3.1e-3,
+# 6.5e-3 layer by layer, the logits 8.6e-3 and the gradients 3.3e-2 of their
+# norm (Transformer 8.2e-3, 1.9e-2; NVIDIA H100 80GB HBM3, 700.00 W)
+BACKBONE_TOL = {"float32": {"logits": 1e-3, "loss": 1e-5, "grad_rel": 1e-3},
+                "bfloat16": {"logits": TOL["eval_logits"], "loss": 1e-3, "grad_rel": 8e-2}}
+# the captured search against the eager loops: the same fp32 adds and maxes in
+# the same order, so equal; bound: 1e-6 of max(1, |x|); the CPU loop runs the
+# SE batch's first 8 rows (about a second a row)
+SEARCH_TOL, SEARCH_CPU_ROWS = 1e-6, 8
+# frames of the eager search whose device operations phase 14(d) counts
+OPS_FRAMES = 16
 
 
 def fail(msg: str) -> None:
@@ -2160,7 +2208,8 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> dict:
 
         def forward(batch):
             t1 = time.perf_counter()
-            out = fn(batch)  # returns host memory: the device work is done
+            out = fn(batch)  # on the card; the CLI copies it to the host next
+            torch.cuda.synchronize()
             fwd_ms.append((time.perf_counter() - t1) * 1e3)
             return out
         return forward
@@ -2192,7 +2241,8 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> dict:
              f"{len(dataset.utt_ids)} utterances")
     print(f"decode: {len(hyps)} utterances, {audio_s:.1f} s of audio in {wall:.2f} s wall "
           f"(real-time factor {audio_s / wall:.1f} x); forward {np.mean(fwd_ms):.2f} ms a batch "
-          f"on the card ({len(fwd_ms)} batches of <= 8, min {min(fwd_ms):.2f}, max "
+          f"on the card, without the copy to the host (split below) ({len(fwd_ms)} batches of "
+          f"<= 8, min {min(fwd_ms):.2f}, max "
           f"{max(fwd_ms):.2f}); host search {np.mean(utt_ms):.1f} ms an utterance (median "
           f"{np.median(utt_ms):.1f}, max {max(utt_ms):.1f}; {threads} threads; beam 16, "
           f"max_active 7000)", flush=True)
@@ -2209,7 +2259,7 @@ def decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str) -> dict:
         for uid in dataset.utt_ids[:2]:
             utt = dataset.get(uid)
             want = forward({"wave": torch.from_numpy(utt.wave[None]),
-                            "mask": torch.ones(1, utt.num_frames)})[0]
+                            "mask": torch.ones(1, utt.num_frames)})[0].numpy()
             got = kaldi_io.read_scp_entry(posts[uid], "mat")
             if got.shape != want.shape:
                 fail(f"dumped log-likelihoods of {uid}: {got.shape}, expected {want.shape}")
@@ -2836,6 +2886,404 @@ def align_graph_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the TDNN and Transformer backbones, and the search on the card
+# ---------------------------------------------------------------------------
+
+
+def backbone_card_vs_cpu(dev, what: str, cfg_yaml: str, data_yaml: str, exp: str) -> None:
+    """Phase 14(a): the trained full-width checkpoint on two chunks of 80
+    frames (the CPU front end's features), on the card and on the CPU, in
+    fp32 and in the run's bf16: logits, the CE loss (relative) and every
+    parameter's gradient (the norm of the difference against the CPU
+    gradient's norm), each within ``BACKBONE_TOL[compute dtype]``."""
+    import torch
+
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import ChunkDataloader
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+    from pykaldi2_tpu_torch.trainer import ce_forward
+    from pykaldi2_tpu_torch.utils import load_checkpoint
+
+    cfg = load_config(cfg_yaml)
+    cfg.data = load_data_config(data_yaml)
+    dataset, feat_fn, _ = build_frontend(cfg.data)
+    cfg.model.input_size = feat_fn.dim
+    batch_np = next(iter(ChunkDataloader(dataset, 2, T, shuffle=False)))
+    # the CPU front end's features feed both: K1 against its plain version
+    # would otherwise move the inputs of the first product
+    feats = feat_fn.for_eval()({k: torch.from_numpy(v) for k, v in batch_np.items()})
+    for dtype in ("float32", "bfloat16"):
+        cfg.model.compute_dtype = dtype
+        tol = BACKBONE_TOL[dtype]
+        out = {}
+        for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = build_model(cfg.model).to(d)
+            load_checkpoint(os.path.join(exp, "model.0.npz"), model)
+            batch = {k: torch.from_numpy(v).to(d) for k, v in batch_np.items()}
+
+            def fe(_batch, generator=None, x=feats.to(d)):
+                return x
+
+            logits = model(fe(batch), batch["mask"])
+            nll, cnt, _cor = ce_forward(model, fe, batch, None, False)
+            loss = nll / cnt
+            loss.backward()
+            out[key] = (logits.detach().cpu(), float(loss.detach()),
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        (lg, lc), (ng, nc) = (out["card"][0], out["cpu"][0]), (out["card"][1], out["cpu"][1])
+        if tuple(lg.shape) != (2, T, SENONES) or not bool(torch.isfinite(lg).all()):
+            fail(f"{what} logits have shape {tuple(lg.shape)} or non-finite values")
+        check(f"{what} {dtype} logits, card vs CPU", lg, lc, tol["logits"])
+        if abs(ng - nc) > tol["loss"] * abs(nc):
+            fail(f"{what} {dtype} CE loss card {ng} vs CPU {nc}")
+        rel = {n: float((out["card"][2][n] - g).norm() / max(float(g.norm()), 1e-30))
+               for n, g in out["cpu"][2].items()}
+        worst = sorted(rel, key=rel.get)[-3:]
+        print(f"{what} {dtype} card vs CPU (2 x {T} frames): loss {ng:.6f} vs {nc:.6f}; "
+              f"gradients |card - CPU| / |CPU| per tensor, worst: "
+              + ", ".join(f"{n} {rel[n]:.3g}" for n in reversed(worst))
+              + f" (bound {tol['grad_rel']})", flush=True)
+        if not max(rel.values()) <= tol["grad_rel"]:
+            fail(f"{what} {dtype} gradients card vs CPU: {max(rel.values()):.3g} of the "
+                 f"tensor's norm")
+
+
+def backbone_phase(dev, root: str, data_yaml: str, base: dict) -> None:
+    """Phase 14(a): ``bin/train_ce.main`` with ce.yaml's ``type: tdnn`` and
+    ``type: transformer`` at full width on phase 3's corpus; K1 launches and
+    K2/K3 (and K5/K6) do not; the card against the CPU; phase 5's timing and
+    profile beside the flagship's step of this run."""
+    import yaml
+
+    for what, model in (("TDNN", TDNN), ("Transformer", TRANSFORMER)):
+        cfg_yaml = os.path.join(root, f"{what.lower()}.yaml")
+        with open(cfg_yaml, "w") as f:
+            yaml.safe_dump({
+                "model": {**model, "output_size": SENONES, "dropout": 0.1,
+                          "compute_dtype": "bfloat16"},
+                "optimizer": {"type": "adam", "lr": 0.0002, "grad_clip": 5.0},
+                "trainer": {"batch_size": B, "chunk_len": T, "num_epochs": 1,
+                            "log_interval": 1, "seed": 777}}, f)
+        exp = os.path.join(root, f"exp_{what.lower()}")
+        launches, steps = train_ce_run(dev, f"{what} CE path", cfg_yaml, data_yaml, exp)
+        need_launches(f"{what} CE path", launches, positive=("fbank",),
+                      zero=("lstm_fwd", "lstm_bwd", "lstm_proj_fwd", "lstm_proj_bwd"))
+        print(f"{what} CE path: K1 {launches['fbank'] / steps:g} launches a step", flush=True)
+        backbone_card_vs_cpu(dev, what, cfg_yaml, data_yaml, exp)
+        got = step_timing(dev, cfg_yaml, data_yaml, f"{what} CE step")
+        print(f"{what} CE step beside the flagship (B={B}, T={T}): queued {got['step_ms']:.3f} vs "
+              f"{base['step_ms']:.3f} ms, fenced p50 {got['fenced_step_ms_p50']:.3f} vs "
+              f"{base['fenced_step_ms_p50']:.3f} ms, {got['frames_per_sec']:.0f} vs "
+              f"{base['frames_per_sec']:.0f} frames/s, busy {100 * got['device_busy_share']:.1f}% "
+              f"vs {100 * base['device_busy_share']:.1f}%, peak {got['peak_mem_gib']:.2f} vs "
+              f"{base['peak_mem_gib']:.2f} GiB", flush=True)
+
+
+def search_compare(dev, what: str, obs, graph, nf, kw: dict, cpu_rows: int = 0) -> tuple:
+    """Phase 14(b)-(d) on one batch: the captured search on the card against
+    the same loop run eagerly on the card, and on the CPU for the first
+    ``cpu_rows`` utterances (each row's search is independent of the others;
+    the CPU loop takes seconds a row) (src, dst, pdf, dropped exactly;
+    weights, finals and scores within ``SEARCH_TOL`` of max(1, |x|)); then
+    the times of both on the card, the capture and the device operations a
+    frame of the eager loop (the nodes its graph holds). Returns the
+    captured search's output."""
+    import torch
+
+    from pykaldi2_tpu_torch.decode import device_lattice as DL
+
+    b, t = obs.shape[:2]
+    search = DL.DeviceSearch(graph)
+    cap = search(obs, nf, **kw)
+    capture = search.last_capture
+    others = [(search(obs, nf, capture=False, **kw), "eager on the card", b)]
+    if cpu_rows:
+        others.append((DL.device_lattice_generate(obs[:cpu_rows].cpu(), graph.to("cpu"),
+                                                  nf[:cpu_rows].cpu(), capture=False, **kw),
+                       f"eager on the CPU (rows 0-{cpu_rows - 1})", cpu_rows))
+    for other, name, rows in others:
+        err = 0.0
+        for field, x, y in zip(cap[0]._fields, cap[0], other[0]):
+            x, y = x[:rows].cpu(), y.cpu()
+            if field in ("src", "dst", "pdf"):
+                if not torch.equal(x, y):
+                    fail(f"{what}: captured search vs {name}: {field} differs")
+            else:
+                err = max(err, close(f"{what} {field}, captured vs {name}", x, y,
+                                     SEARCH_TOL, SEARCH_TOL))
+        err = max(err, close(f"{what} scores, captured vs {name}", cap[1][:rows].cpu(),
+                             other[1].cpu(), SEARCH_TOL, SEARCH_TOL))
+        if not torch.equal(cap[2][:rows].cpu(), other[2].cpu()):
+            fail(f"{what}: dropped counts differ, captured vs {name}")
+        print(f"{what}: captured search equals the {name} (indices exact, weights within "
+              f"{err:.3g})", flush=True)
+    eager_ms = timed(lambda: search(obs, nf, capture=False, **kw), n=1, warmup=0)
+    rep_ms = timed(lambda: search(obs, nf, **kw), n=5, warmup=1)
+    # the profiler's cost grows with the operations it records: count them on
+    # the first OPS_FRAMES frames, profile one replay
+    _busy, ops = profile_steps(
+        lambda: search(obs[:, :OPS_FRAMES], nf.clamp(max=OPS_FRAMES), capture=False, **kw), 1,
+        f"{what} eager search profile (first {OPS_FRAMES} frames)", top=8)
+    busy, _ops = profile_steps(lambda: search(obs, nf, **kw), 1,
+                               f"{what} captured search profile", top=5)
+    live = (cap[0].weight > -5e29).sum(2)
+    print(f"{what} search (B={b}, T={t}, {json.dumps(kw)}): captured {rep_ms:.2f} ms "
+          f"({1e3 * rep_ms / t:.1f} us a frame, busy {100 * busy:.1f}%) vs eager {eager_ms:.2f} ms "
+          f"({1e3 * eager_ms / t:.1f} us a frame); capture {capture.get('s', math.nan):.2f} s "
+          f"of host time, {ops / OPS_FRAMES:.1f} device operations a frame (graph nodes); "
+          f"links a frame max {int(live.max())}, mean {float(live.float().mean()):.1f}; dropped "
+          f"{int(cap[2].sum())}", flush=True)
+    return cap
+
+
+def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> None:
+    """Phase 14(b): ``bin/train_se.main -on_the_fly -decoder device`` under
+    MMI and sMBR at phase 9's settings and max_arcs 800, from phase 3's
+    checkpoint: K1-K3 and the criterion's K7/K8 or K9/K10 launch; the step
+    split from ``metrics.jsonl`` beside phase 9's host-decoder steps; then one
+    batch: the captured search against the eager loops on the card and the
+    CPU (phase 14(d)), and K7-K10 on its compacted band against their plain
+    versions."""
+    import torch
+
+    from pykaldi2_tpu_torch.bin import train_se
+    from pykaldi2_tpu_torch.bin.train_se import phone_loop_den_fst
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
+    from pykaldi2_tpu_torch.decode.device_lattice import _compact_band, pack_decode_graph
+    from pykaldi2_tpu_torch.graph import TransitionModel, estimate_phone_bigram
+    from pykaldi2_tpu_torch.graph.phone_lm import collapse_to_phones
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
+
+    mdl = os.path.join(root, "se_corpus", "final.mdl")
+    need = {"mmi": ("latfb_logz_fwd", "latfb_occupancies_bwd"),
+            "smbr": ("latfb_smbr_fwd", "latfb_smbr_bwd")}
+    for crit in ("mmi", "smbr"):
+        exp = os.path.join(root, f"se_dev_{crit}")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = train_se.main(
+            ["-config", se_cfg, "-data", se_data, "-exp_dir", exp, "-on_the_fly", "-decoder",
+             "device", "-criterion", crit, "-seed_model", ce_ckpt, "-trans_model", mdl,
+             "-beam", str(DEV_SE["beam"]), "-lattice_beam", str(DEV_SE["lattice_beam"]),
+             "-max_active", str(DEV_SE["max_active"]), "-max_arcs", str(DEV_SE["max_arcs"])],
+            device=str(dev))
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        if rc != 0:
+            fail(f"train_se.main -decoder device -criterion {crit} returned {rc}")
+        need_launches(f"device-search SE {crit} path", got,
+                      positive=("fbank", "lstm_fwd", "lstm_bwd") + need[crit])
+        steps = step_records(exp)
+        if len(steps) != SE_UTTS // SE_B or not all(math.isfinite(r["objective"])
+                                                     for r in steps):
+            fail(f"device-search SE {crit}: expected {SE_UTTS // SE_B} steps with finite "
+                 f"objectives, got {steps}")
+        print(f"device-search SE {crit}: {len(steps)} steps in {wall:.2f} s of CLI (capture "
+              f"included); launches a step: " + ", ".join(
+                  f"{k} {got[k] / len(steps):g}" for k in ("fbank", "lstm_fwd", "lstm_bwd")
+                  + need[crit]), flush=True)
+        host = step_records(os.path.join(root, f"se_{crit}"))
+        for r, h in zip(steps, host):
+            parts = [r[k] for k in ("forward_ms", "search_ms", "compact_ms", "train_ms")]
+            print(f"device-search SE {crit} step {int(r['step'])}: objective "
+                  f"{r['objective']:.5f} | forward {parts[0]:.1f}, search {parts[1]:.1f}, "
+                  f"compaction {parts[2]:.1f}, train step {parts[3]:.1f} ms: step {sum(parts):.1f} "
+                  f"ms by events | band K {int(r['lat_k'])} A {int(r['lat_a'])} after "
+                  f"compaction, lattice_links_dropped {int(r['lattice_links_dropped'])} | phase 9 "
+                  f"host-decoder step {int(h['step'])}: forward {h['forward_ms']:.1f} + wait "
+                  f"{h['wait_ms']:.1f} + train {h['train_ms']:.1f} ms (decode "
+                  f"{h['decode_ms']:.1f}, pack {h['pack_ms']:.1f} ms on the host)", flush=True)
+
+    # one batch: the first SE batch's eval obs from phase 3's checkpoint
+    cfg = load_config(se_cfg)
+    cfg.data = load_data_config(se_data)
+    dataset, feat_fn, _ = build_frontend(cfg.data)
+    cfg.model.input_size = feat_fn.dim
+    model = build_model(cfg.model).to(dev)
+    load_checkpoint(ce_ckpt, model)
+    tm = TransitionModel.read_kaldi(mdl)
+    p2p = {pdf: p for (p, _j, pdf) in tm.tuples}
+    seqs = [collapse_to_phones([p2p[int(x)] for x in lab]) for lab in dataset.labels.values()]
+    den = pack_decode_graph(phone_loop_den_fst(tm, estimate_phone_bigram(seqs, tm.topo.phones)))
+    den = den.to(dev)
+    loader = SeqDataloader(dataset, BucketSpec(boundaries=(SE_T,), batch_sizes=SE_B),
+                           shuffle=False)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(loader)).items()
+             if k != "utt_ids"}
+    log_prior = priors_from_counts(count_labels(dataset.labels.values(), cfg.model.output_size))
+    fwd, _train = make_se_lattice_steps(model, feat_fn,
+                                        make_optimizer(cfg.optimizer, model.parameters()),
+                                        log_prior=log_prior,
+                                        acoustic_scale=cfg.trainer.acoustic_scale,
+                                        obs_transfer_dtype="float32")
+    obs, nf = fwd(batch), batch["num_frames"]
+    kw = {k: DEV_SE[k] for k in ("beam", "lattice_beam", "max_active", "max_arcs")}
+    lat, _ = _compact_band(search_compare(dev, "SE den graph", obs, den, nf, kw,
+                                          cpu_rows=SEARCH_CPU_ROWS)[0], None)
+    ref = torch.randint(0, SE_PHONES * 3, tuple(obs.shape[:2]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    errs = latfb_compare(dev, "device-decoded", obs, lat, nf.long(), ref)
+    print("K7-K10 on the device-decoded band (B=%d, T=%d, K=%d, A=%d) vs plain: %s"
+          % (obs.shape[0], obs.shape[1], lat.num_slots, lat.src.shape[2],
+             ", ".join(f"{k} {v:.3g}" for k, v in errs.items())), flush=True)
+
+
+def device_decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec: dict) -> None:
+    """Phase 14(c): ``bin/decode.main -decoder device`` over phase 12's 96
+    utterances, checkpoint, prior and word loop at beam 16, max_active 2000
+    (K is capped at the graph's states), max_arcs 1024 and lattice beam 8 (K1
+    and K2 launch, K3 and K7-K10 not; search ms a batch by CUDA events, links
+    dropped, retries, hypotheses equal to phase 12's host decode); then
+    ``-on_device`` on the same graph, ``-nbest 5`` on 8 utterances through
+    the device route, and one batch's captured search against the eager
+    loops (phase 14(d))."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.bin import decode
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
+    from pykaldi2_tpu_torch.data.dataset import SpeechDataset
+    from pykaldi2_tpu_torch.decode import device_lattice as DL
+    from pykaldi2_tpu_torch.graph.fst import Fst
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.pipeline import FeaturePipeline
+    from pykaldi2_tpu_torch.utils import load_checkpoint
+
+    graph = os.path.join(root, "decode_graph.fst.txt")
+    ref = os.path.join(root, "decode_ref.txt")
+    threads = min(os.cpu_count() or 1, 16)
+    cfg = load_config(se_cfg)
+    cfg.data = load_data_config(se_data)
+    dataset = SpeechDataset.from_config(cfg.data)
+    audio_s = sum(dataset.utt_num_frames(u) for u in dataset.utt_ids) * 0.01
+    base = ["-config", se_cfg, "-data", se_data, "-model", ckpt, "-graph", graph,
+            "-words", dec["words"], "-ref", ref, "-prior", dec["prior"],
+            "-num_threads", str(threads)]
+    dev_args = ["-decoder", "device", "-beam", str(DEV_DECODE["beam"]), "-max_active",
+                str(DEV_DECODE["max_active"]), "-max_arcs", str(DEV_DECODE["max_arcs"]),
+                "-lattice_beam", str(DEV_DECODE["lattice_beam"])]
+    calls, real = [], DL.DeviceSearch.__call__
+
+    def timed_search(self, obs, nf, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(self, obs, nf, **kw)
+        e1.record()
+        calls.append((e0, e1, out[2].sum(), kw["lattice_beam"], obs.shape[1]))
+        return out
+
+    hyp = os.path.join(root, "decode_dev.hyp")
+    DL.DeviceSearch.__call__ = timed_search
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = decode.main(base + dev_args + ["-hyp_out", hyp], device=str(dev))
+    finally:
+        DL.DeviceSearch.__call__ = real
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        fail(f"decode.main -decoder device returned {rc}")
+    need_launches("device decode path", launches, positive=("fbank", "lstm_fwd"),
+                  zero=("lstm_bwd", "latfb_logz_fwd", "latfb_occupancies_bwd",
+                        "latfb_smbr_fwd", "latfb_smbr_bwd"))
+    first = [c for c in calls if c[3] == DEV_DECODE["lattice_beam"]]
+    search_ms = [c[0].elapsed_time(c[1]) for c in first]
+    dropped = sum(int(c[2]) for c in calls)
+    retries = len(calls) - len(first)
+    hyps = {ln.split()[0]: ln.split()[1:] for ln in open(hyp)}
+    host = {ln.split()[0]: ln.split()[1:] for ln in open(os.path.join(root, "decode.hyp"))}
+    same = sum(1 for u, w in hyps.items() if host.get(u) == w)
+    if len(hyps) + retries < 1 or len(hyps) > len(dataset.utt_ids):
+        fail(f"decode -decoder device wrote {len(hyps)} hypotheses")
+    print(f"decode -decoder device: {len(hyps)} of {len(dataset.utt_ids)} utterances, "
+          f"{audio_s:.1f} s of audio in {wall:.2f} s wall (real-time factor "
+          f"{audio_s / wall:.1f} x); launches a batch: K1 {launches['fbank'] / len(first):g}, K2 "
+          f"{launches['lstm_fwd'] / len(first):g}; search {np.mean(search_ms):.1f} ms a batch "
+          f"by events (first batch, capture included, {search_ms[0]:.1f}; {len(first)} batches, "
+          f"frames {sorted({c[4] for c in first})}); {dropped} links dropped, {retries} retries "
+          f"at a wider lattice beam; {same} of {len(hyps)} hypotheses equal phase 12's host "
+          f"decode (random weights: reported, not required)", flush=True)
+
+    g = Fst.read_text(graph)
+    if any(a.ilabel == 0 for arcs in g.arcs for a in arcs):
+        fail("phase 12's word loop has eps arcs: -on_device needs a fully-emitting graph")
+    hyp_od = os.path.join(root, "decode_ondev.hyp")
+    zero_counts()
+    t0 = time.perf_counter()
+    if decode.main(base + ["-on_device", "-hyp_out", hyp_od], device=str(dev)) != 0:
+        fail("decode.main -on_device failed")
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    need_launches("on-device decode path", got, positive=("fbank", "lstm_fwd"),
+                  zero=("lstm_bwd",))
+    od = {ln.split()[0]: ln.split()[1:] for ln in open(hyp_od)}
+    if sorted(od) != sorted(dataset.utt_ids):
+        fail(f"decode -on_device wrote {len(od)} hypotheses for {len(dataset.utt_ids)}")
+    same = sum(od[u] == host.get(u) for u in od)
+    print(f"decode -on_device: {len(od)} utterances, {audio_s:.1f} s of audio in {wall:.2f} s "
+          f"wall (real-time factor {audio_s / wall:.1f} x); {same} hypotheses equal phase "
+          f"12's host decode", flush=True)
+
+    uids = dataset.utt_ids[:8]
+    sub = subset_data(root, "decode_dev_nbest", se_data, uids)
+    nb = os.path.join(root, "decode_dev.nbest")
+    t0 = time.perf_counter()
+    run = ["-config", se_cfg, "-data", sub, "-model", ckpt, "-graph", graph, "-words",
+           dec["words"], "-prior", dec["prior"], "-num_threads", "1", "-decoder", "device",
+           "-max_active", str(NBEST_ACTIVE), "-nbest", "5", "-nbest_out", nb, "-hyp_out",
+           os.path.join(root, "decode_dev_nbest.hyp")]
+    if decode.main(run, device=str(dev)) != 0:
+        fail("decode.main -decoder device -nbest 5 failed")
+    lines = [ln.split() for ln in open(nb)]
+    got_uids = {ln[0].rsplit("-", 1)[0] for ln in lines}
+    if not got_uids or not got_uids <= set(uids) or any(len(ln) < 2 for ln in lines):
+        fail(f"decode -decoder device -nbest 5 wrote {len(lines)} lines for {sorted(got_uids)}")
+    print(f"decode -decoder device -nbest 5 (max_active {NBEST_ACTIVE}, one thread): {len(uids)} "
+          f"utterances "
+          f"in {time.perf_counter() - t0:.2f} s, {len(lines)} N-best lines for "
+          f"{len(got_uids)} utterances", flush=True)
+
+    # phase 14(d) on one batch of the decode: its log-likelihoods from the CLI's forward
+    feat_fn = FeaturePipeline(cfg.data.feat).for_eval()
+    cfg.model.input_size = feat_fn.dim
+    model = build_model(cfg.model).to(dev)
+    load_checkpoint(ckpt, model)
+    model.eval()
+    forward = decode.make_forward(model, feat_fn, np.load(dec["prior"]), 0.1, dev)
+    loader = SeqDataloader(dataset, BucketSpec(boundaries=(200, 400, 800, 1600, 3200),
+                                               batch_sizes=8), shuffle=False)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(loader)).items()
+             if k != "utt_ids"}
+    word = DL.pack_decode_graph(g, eps_mode="auto").to(dev)
+    kw = dict(DEV_DECODE, return_olabels=True)
+    search_compare(dev, "decode word loop", forward(batch), word, batch["num_frames"], kw)
+
+
+def device_search_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str,
+                        se_ckpt: str, dec: dict, data_yaml: str, base: dict) -> None:
+    """Phase 14: the other backbones (a), and the search on the card in
+    training (b) and decoding (c), each captured search held against the
+    eager loops (d)."""
+    t_phase = time.perf_counter()
+    backbone_phase(dev, root, data_yaml, base)
+    t_b = time.perf_counter()
+    device_se_phase(dev, root, ce_ckpt, se_cfg, se_data)
+    t_c = time.perf_counter()
+    device_decode_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
+    t_end = time.perf_counter()
+    print(f"phase 14 (backbones {t_b - t_phase:.1f} s, device-search SE {t_c - t_b:.1f} s, "
+          f"device decode {t_end - t_c:.1f} s): {t_end - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2898,6 +3346,8 @@ def main() -> int:
     se_ckpt = os.path.join(root, "se_mmi", "model.0.npz")
     dec = decode_phase(dev, root, se_cfg, se_data, se_ckpt)
     align_graph_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
+    device_search_phase(dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data, se_ckpt,
+                        dec, data_yaml, base)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -33,7 +34,7 @@ import torch
 from pykaldi2_tpu_torch.config import load_config, load_data_config
 from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
 from pykaldi2_tpu_torch.data.dataset import SpeechDataset
-from pykaldi2_tpu_torch.data.prefetch import device_prefetch
+from pykaldi2_tpu_torch.data.prefetch import device_batches, device_prefetch
 from pykaldi2_tpu_torch.decode.decoder import LatticeDecoder
 from pykaldi2_tpu_torch.decode.wer import score_corpus
 from pykaldi2_tpu_torch.device import resolve_device
@@ -41,10 +42,6 @@ from pykaldi2_tpu_torch.graph.fst import Fst
 from pykaldi2_tpu_torch.models import build_model
 from pykaldi2_tpu_torch.pipeline import FeaturePipeline
 from pykaldi2_tpu_torch.utils import load_checkpoint, setup_logging
-
-UNPORTED = ("comes with the device decoder (ROADMAP.md Queue 1 item 17); "
-            "use -decoder host")
-
 
 def read_symtab(path: str):
     """OpenFst-style symbol table: 'word id' per line."""
@@ -74,7 +71,7 @@ def load_graph(path: str):
 
 def make_forward(model, feat_fn: FeaturePipeline, log_prior: Optional[np.ndarray],
                  acoustic_scale: float, dev: torch.device):
-    """forward(batch of device tensors) → host fp32 [B, T, P]:
+    """forward(batch of device tensors) → fp32 [B, T, P] on the device:
     acoustic_scale · (log_softmax(logits) − log_prior)."""
     lp = None if log_prior is None else torch.as_tensor(log_prior, dtype=torch.float32,
                                                         device=dev)
@@ -85,9 +82,30 @@ def make_forward(model, feat_fn: FeaturePipeline, log_prior: Optional[np.ndarray
         logpost = torch.log_softmax(logits.to(torch.float32), dim=-1)
         if lp is not None:
             logpost = logpost - lp
-        return (acoustic_scale * logpost).cpu().numpy()
+        return acoustic_scale * logpost
 
     return forward
+
+
+class PdfColumns:
+    """Host copy of some pdf columns of one utterance's scaled
+    log-likelihoods, indexed as the full [T, P] matrix is by the lattice
+    scoring (``loglikes[frames, pdfs]``)."""
+
+    def __init__(self, cols: np.ndarray, remap: np.ndarray):
+        self.cols, self.remap = cols, remap
+
+    def __getitem__(self, key):
+        rows, pdfs = key
+        return self.cols[rows, self.remap[pdfs]]
+
+
+def graph_pdf_columns(fst: Fst, num_outputs: int):
+    """(the graph's pdf ids as a device index, pdf → column map)."""
+    pdfs = sorted({a.ilabel - 1 for arcs in fst.arcs for a in arcs if a.ilabel > 0})
+    remap = np.zeros(num_outputs, np.int64)
+    remap[pdfs] = np.arange(len(pdfs))
+    return np.asarray(pdfs, np.int64), remap
 
 
 def build_argparser():
@@ -105,11 +123,17 @@ def build_argparser():
     p.add_argument("-word_penalty", type=float, default=0.0)
     p.add_argument("-max_active", type=int, default=7000)
     p.add_argument("-on_device", action="store_true",
-                   help="exact batched Viterbi decoding on the accelerator (not "
-                        "ported yet: ROADMAP.md Queue 1 item 17)")
+                   help="exact batched Viterbi decoding on the accelerator "
+                        "(no host beam search); best for small/medium graphs")
     p.add_argument("-decoder", choices=("host", "device"), default="host",
-                   help="'device' (the batched lattice search on the accelerator) "
-                        "is not ported yet: ROADMAP.md Queue 1 item 17")
+                   help="'device' runs the batched beam-pruned lattice search on "
+                        "the accelerator (decode/device_lattice) and converts the "
+                        "banded lattices for scoring; all lattice modes work. Set "
+                        "-max_active to the frontier size (e.g. 200-2000, not the "
+                        "host default 7000: it shapes the dense per-frame band)")
+    p.add_argument("-max_arcs", type=int, default=1024,
+                   help="device decoder: lattice links kept per frame (band cap; "
+                        "overflow drops the worst links and warns)")
     p.add_argument("-num_threads", type=int, default=4,
                    help="parallel host decoding threads (ctypes releases the "
                         "GIL during the C++ search)")
@@ -161,15 +185,20 @@ def sweep_scales_of(spec: Optional[str]) -> list:
 
 def main(argv=None, device: Optional[str] = None):
     args = build_argparser().parse_args(argv)
-    if args.decoder == "device":
-        raise NotImplementedError(f"-decoder device {UNPORTED}")
-    if args.on_device:
-        raise NotImplementedError(f"-on_device {UNPORTED}")
     if args.ctm_out:
         args.mbr = True
     sweep_scales = sweep_scales_of(args.lm_scale_sweep)
     if sweep_scales and not args.ref:
         raise SystemExit("-lm_scale_sweep needs -ref to score")
+    lattice_mode = bool(args.lattice_out or args.nbest or args.oracle
+                        or args.mbr or sweep_scales)
+    if lattice_mode and args.on_device:
+        raise SystemExit("-lattice_out/-nbest/-oracle/-mbr need a lattice "
+                         "decoder; drop -on_device (or use -decoder device)")
+    if args.on_device and args.decoder == "device":
+        raise SystemExit("-on_device (exact Viterbi) and -decoder device "
+                         "(beam-pruned lattice search) are different "
+                         "accelerator paths; pick one")
     if args.oracle and not args.ref:
         raise SystemExit("-oracle needs -ref")
     dev = resolve_device(device)
@@ -188,13 +217,48 @@ def main(argv=None, device: Optional[str] = None):
 
     graph = load_graph(args.graph)
     n_threads = max(args.num_threads, 1)
-    lattice_mode = bool(args.lattice_out or args.nbest or args.oracle
-                        or args.mbr or sweep_scales)
-    # decoder handles are stateful — one per thread
-    decoders = [LatticeDecoder(graph, beam=args.beam, max_active=args.max_active,
-                               lattice_beam=args.lattice_beam,
-                               word_penalty=args.word_penalty)
-                for _ in range(n_threads)]
+    dense_packed = dev_graph = None
+    decoders = []
+    if args.decoder == "device":
+        from pykaldi2_tpu_torch.decode.device_lattice import DeviceSearch, pack_decode_graph
+
+        fstg = graph.to_fst() if hasattr(graph, "to_fst") else graph
+        if not isinstance(fstg, Fst):
+            raise SystemExit("-decoder device needs an Fst-convertible "
+                             "graph (text / .npz / OpenFst binary)")
+        try:
+            # in-frame eps closure where the eps subgraph qualifies (backoff
+            # word-LM graphs: no offline-fold arc blowup), else the fold
+            dev_graph = pack_decode_graph(fstg, word_penalty=args.word_penalty,
+                                          eps_mode="auto")
+        except ValueError as e:
+            raise SystemExit(f"-decoder device cannot run this graph: {e}")
+        if not dev_graph.has_olabels:
+            raise SystemExit("-decoder device needs word output labels on "
+                             "the decode graph")
+        log.info("device decoding: %d states, buckets [%d x %d | %d x %d]",
+                 dev_graph.num_states, dev_graph.s_lo, dev_graph.d_lo,
+                 dev_graph.num_states - dev_graph.s_lo, dev_graph.d_hi)
+        device_search = DeviceSearch(dev_graph.to(dev))
+        used_pdfs, pdf_remap = graph_pdf_columns(fstg, cfg.model.output_size)
+        used_pdfs = torch.as_tensor(used_pdfs, device=dev)
+    if args.on_device:
+        if not isinstance(graph, Fst):
+            raise SystemExit("-on_device needs a fully-emitting text graph "
+                             "(eps-free); npz HCLG graphs are host-decoder only")
+        from pykaldi2_tpu_torch.decode.on_device import dense_from_pdf_fst
+        from pykaldi2_tpu_torch.ops.fb import pack_graph
+
+        dense_packed = pack_graph(dense_from_pdf_fst(graph, word_penalty=args.word_penalty))
+        log.info("on-device decoding: %d states, %d arcs",
+                 dense_packed.num_states, int(dense_packed.src.shape[0]))
+        dense_packed = dense_packed.to(dev)
+    elif dev_graph is None:
+        # decoder handles are stateful — one per thread
+        decoders = [LatticeDecoder(graph, beam=args.beam, max_active=args.max_active,
+                                   lattice_beam=args.lattice_beam,
+                                   word_penalty=args.word_penalty)
+                    for _ in range(n_threads)]
     id2w = read_symtab(args.words)
 
     hyps = {}
@@ -212,16 +276,25 @@ def main(argv=None, device: Optional[str] = None):
                            extras_fn=(feat_fn.batch_extras
                                       if feat_fn.has_extras else None))
 
-    def decode_one(i: int, uid: str, dec: LatticeDecoder, obs: np.ndarray, nf: np.ndarray):
-        """(uid, hypothesis words) of row i, or (uid, None) when it fails."""
-        from pykaldi2_tpu_torch.decode.lattice import best_path, lattice_word_fst
+    def decode_one(uid: str, dec: Optional[LatticeDecoder], ll, pre):
+        """(uid, hypothesis words) of one utterance, or (uid, None) when it
+        fails. ``ll``: its scaled log-likelihoods (host [T, P], or the
+        device route's ``PdfColumns``); ``pre``: the device lattice as
+        (DenseFsa, frames), else the host decoder ``dec`` decodes ``ll``."""
+        from pykaldi2_tpu_torch.decode.lattice import (best_path, frame_lattice_best_path,
+                                                       lattice_word_fst)
 
-        ll = obs[i, : nf[i]]
         try:
             if not lattice_mode:
-                words, _pdfs, _score = dec.decode(ll)
+                if pre is None:
+                    words, _pdfs, _score = dec.decode(ll)
+                else:  # the device lattice's best path, without the word acceptor
+                    words, _score = frame_lattice_best_path(pre[0], pre[1], ll)
                 return uid, [id2w.get(w, f"<{w}>") for w in words]
-            lat, frames, _sc = dec.decode_lattice(ll, with_frames=True)
+            if pre is not None:
+                lat, frames = pre
+            else:
+                lat, frames, _sc = dec.decode_lattice(ll, with_frames=True)
             wf = None
             if args.lattice_out or args.nbest or args.oracle or not args.mbr:
                 wf = lattice_word_fst(lat, loglikes=ll, frames=frames, acoustic_scale=1.0)
@@ -250,24 +323,111 @@ def main(argv=None, device: Optional[str] = None):
             log.warning("decode failed for %s: %s", uid, e)
             return uid, None
 
+    def host_side(pool, utt_ids, lls, pre=None, only=None):
+        """Decode (or, with device lattices ``pre``, score) the batch's
+        utterances on ``n_threads`` threads; ``only`` restricts it to a
+        subset of utt_ids without touching results already recorded."""
+        jobs = [(uid, decoders[i % n_threads] if decoders else None, lls[i],
+                 None if pre is None else pre[i])
+                for i, uid in enumerate(utt_ids) if only is None or uid in only]
+
+        # shard jobs so each decoder handle is used by exactly one thread
+        def run_shard(t):
+            return [decode_one(*job) for job in jobs[t::n_threads]]
+
+        for shard in pool.map(run_shard, range(n_threads)):
+            for uid, words in shard:
+                if words is not None:
+                    hyps[uid] = words
+
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def search(obs, nf_dev, lattice_beam):
+        lat, _scores, dropped, olab = device_search(
+            obs, nf_dev, max_active=args.max_active, max_arcs=args.max_arcs,
+            beam=args.beam, lattice_beam=lattice_beam, return_olabels=True)
+        done = None
+        if copy_stream is not None:
+            done = torch.cuda.Event()
+            done.record()
+        return lat, dropped, olab, done
+
+    def convert(item):
+        """Device lattices of one batch → per-utterance (DenseFsa, frames)
+        and the log-likelihood rows the scoring reads; on a side stream that
+        waits only for this batch's search, so the card searches the next
+        batch meanwhile."""
+        from pykaldi2_tpu_torch.decode.device_lattice import banded_to_fsas
+
+        utt_ids, obs, obs_np, nf, (lat, dropped, olab, done) = item
+        with torch.cuda.stream(copy_stream) if copy_stream is not None else nullcontext():
+            if done is not None:
+                copy_stream.wait_event(done)
+            n_drop = int(dropped.sum())
+            if n_drop:
+                log.warning("device search dropped %d lattice links to the band cap; "
+                            "raise -max_arcs", n_drop)
+            framed = banded_to_fsas(lat, nf, olabels=olab)
+            if obs_np is not None:
+                lls = [obs_np[i, : nf[i]] for i in range(len(utt_ids))]
+            else:
+                cols = obs.index_select(2, used_pdfs).cpu().numpy()
+                lls = [PdfColumns(cols[i, : nf[i]], pdf_remap) for i in range(len(utt_ids))]
+        return framed, lls
+
+    def run_batch(pool, item):
+        """Score one device-searched batch, then search ONE more time, at
+        min(2·lattice_beam, beam), the utterances whose pruned lattice kept
+        no complete path (the per-frame lattice beam can prune the best path
+        when max_active is narrower than the lattice-beam token set)."""
+        utt_ids, obs, obs_np, nf, _dev_out = item
+        framed, lls = convert(item)
+        host_side(pool, utt_ids, lls, pre=framed)
+        failed = {u for u in utt_ids if u not in hyps}
+        lb2 = min(args.lattice_beam * 2.0, args.beam)
+        if not failed or lb2 <= args.lattice_beam:
+            return
+        log.warning("%d utterance(s) had no complete lattice path at "
+                    "lattice_beam %.1f; retrying on device at %.1f",
+                    len(failed), args.lattice_beam, lb2)
+        retry = (utt_ids, obs, obs_np, nf,
+                 search(obs, torch.as_tensor(nf, device=dev), lb2))
+        framed, lls = convert(retry)
+        host_side(pool, utt_ids, lls, pre=framed, only=failed)
+
+    pending = None
     with ThreadPoolExecutor(max_workers=n_threads) as pool:
-        for batch in device_prefetch(loader, dev):
+        # the device search captures CUDA graphs: no loader thread may issue
+        # CUDA work meanwhile
+        batches = (device_batches if dev_graph is not None else device_prefetch)(loader, dev)
+        for batch in batches:
             utt_ids = batch.pop("utt_ids")
             nf = batch["num_frames"].cpu().numpy()
             obs = forward(batch)
+            # the host decoder reads host rows; the device routes copy whole
+            # matrices only for -dump_ark
+            obs_np = obs.cpu().numpy() if (dump is not None or not (
+                dense_packed is not None or dev_graph is not None)) else None
             if dump is not None:
                 for i, uid in enumerate(utt_ids):
-                    dump.write(uid, obs[i, : nf[i]])
-            jobs = [(i, uid, decoders[i % n_threads]) for i, uid in enumerate(utt_ids)]
+                    dump.write(uid, obs_np[i, : nf[i]])
+            if dense_packed is not None:
+                from pykaldi2_tpu_torch.decode.on_device import viterbi_decode_words
 
-            # shard jobs so each decoder handle is used by exactly one thread
-            def run_shard(t):
-                return [decode_one(i, uid, dec, obs, nf) for i, uid, dec in jobs[t::n_threads]]
-
-            for shard in pool.map(run_shard, range(n_threads)):
-                for uid, words in shard:
-                    if words is not None:
-                        hyps[uid] = words
+                words_b, _pdfs, _scores = viterbi_decode_words(obs, dense_packed,
+                                                               batch["num_frames"])
+                for uid, ws in zip(utt_ids, words_b):
+                    hyps[uid] = [id2w.get(w, f"<{w}>") for w in ws]
+            elif dev_graph is not None:
+                item = (utt_ids, obs, obs_np, nf,
+                        search(obs, batch["num_frames"], args.lattice_beam))
+                if pending is not None:  # the card searches this batch meanwhile
+                    run_batch(pool, pending)
+                pending = item
+            else:
+                host_side(pool, utt_ids, [obs_np[i, : nf[i]] for i in range(len(utt_ids))])
+        if pending is not None:
+            run_batch(pool, pending)
     if dump is not None:
         dump.close()
     if args.ctm_out:

@@ -23,11 +23,16 @@ Two modes, as in the reference:
     (decode/decoder.py) decodes one denominator lattice per utterance on
     host threads, the lattices are packed into frame bands
     (ops/fb_lattice.py), and the banded forward-backward runs on the device
-    (kernels K7-K10).
+    (kernels K7-K10);
+  * ``-on_the_fly -decoder device``: the forward, the batched beam search
+    (decode/device_lattice.py, a captured CUDA graph), the band's compaction
+    and the train step all run on the device, with lattices from the
+    parameters of the same step; ``lattice_links_dropped`` (links cut to
+    ``-max_arcs``, by default 4·max_active) is summed on the device and read
+    at ``log_interval``.
 
 Runs on one CUDA device unless ``PK2_PLATFORM=cpu`` (or ``main(...,
-device="cpu")``) asks for the CPU. ``-decoder device`` and ``-multihost``
-raise until their slices.
+device="cpu")``) asks for the CPU. ``-multihost`` raises until its slice.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 
 from pykaldi2_tpu_torch.config import load_config, load_data_config
 from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
-from pykaldi2_tpu_torch.data.prefetch import device_prefetch
+from pykaldi2_tpu_torch.data.prefetch import device_batches, device_prefetch
 from pykaldi2_tpu_torch.device import resolve_device
 from pykaldi2_tpu_torch.graph import (HmmTopology, TransitionModel, estimate_phone_bigram,
                                       make_den_graph)
@@ -99,10 +104,12 @@ def build_argparser():
                         "default: phone-loop graph from the den phone LM")
     p.add_argument("-decoder", choices=["host", "device"], default="host",
                    help="-on_the_fly lattice generator: 'host' = native C++ "
-                        "decoder fed by a device->host obs copy; 'device' comes "
-                        "with the device-decoder slice")
+                        "decoder fed by a device->host obs copy; 'device' = "
+                        "batched beam search on the accelerator (same-step "
+                        "params, no host copy)")
     p.add_argument("-max_arcs", type=int, default=None,
-                   help="-decoder device: lattice-link band width per frame")
+                   help="-decoder device: lattice-link band width per frame "
+                        "(default 4 x max_active)")
     p.add_argument("-max_active", type=int, default=None,
                    help="decoder frontier cap (overrides trainer.max_active)")
     p.add_argument("-beam", type=float, default=None)
@@ -181,10 +188,6 @@ def main(argv=None, device: Optional[str] = None):
     args = build_argparser().parse_args(argv)
     if args.multihost:
         raise NotImplementedError("-multihost comes with the DDP slice (ROADMAP.md Queue 1)")
-    if args.on_the_fly and args.decoder == "device":
-        raise NotImplementedError(
-            "-decoder device (the batched beam search on the GPU) comes with the "
-            "device-decoder slice (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
     cfg = load_config(args.config)
     if args.data:
@@ -467,6 +470,11 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     beam = args.beam if args.beam is not None else cfg.trainer.beam
     max_active = args.max_active if args.max_active is not None else cfg.trainer.max_active
     lat_beam = args.lattice_beam if args.lattice_beam is not None else cfg.trainer.lattice_beam
+    if args.decoder == "device":
+        return _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model,
+                                  optimizer, den_fst, (beam, lat_beam, max_active),
+                                  pdf_to_phone, log_prior, start_epoch, dev, resume_meta,
+                                  crit, extras_fn, silence)
     n_threads = max(int(args.num_threads or 4), 1)
     decoders = [LatticeDecoder(den_fst, beam=beam, max_active=max_active,
                                lattice_beam=lat_beam) for _ in range(n_threads)]
@@ -562,6 +570,101 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     finally:
         utt_pool.shutdown()
         pipe_pool.shutdown()
+        metrics_log.close()
+    return 0
+
+
+def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
+                       den_fst, beams, pdf_to_phone, log_prior, start_epoch, dev, resume_meta,
+                       crit, extras_fn, silence):
+    """``-on_the_fly -decoder device``: per batch the eval forward, the batched
+    beam search over the folded den graph (decode/device_lattice.py), the
+    band's compaction (its one host sync) and the train step, all on the
+    device and from the parameters of the same step. Batches reach the
+    device on this thread (``device_batches``): the search captures CUDA
+    graphs, which no loader thread's copies may meet mid-capture. Each logged step
+    records ``forward_ms``, ``search_ms``, ``compact_ms`` and ``train_ms``
+    (CUDA events; the host clock on the CPU), the band's ``lat_k`` and
+    ``lat_a`` after compaction, and ``lattice_links_dropped``, the epoch's
+    links cut to ``max_arcs`` so far (summed on the device)."""
+    from pykaldi2_tpu_torch.decode.device_lattice import (DeviceSearch, _compact_band,
+                                                          pack_decode_graph)
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+
+    beam, lat_beam, max_active = beams
+    dev_graph = pack_decode_graph(den_fst)
+    max_arcs = int(args.max_arcs or 4 * max_active)
+    log.info("on-the-fly den decoding ON DEVICE: graph %d states, in-degree buckets "
+             "%dx%d + %dx%d (eps folded), beam %.1f lat_beam %.1f max_active %d "
+             "max_arcs %d, same-step params", dev_graph.num_states, dev_graph.s_lo,
+             dev_graph.d_lo, dev_graph.num_states - dev_graph.s_lo, dev_graph.d_hi, beam,
+             lat_beam, max_active, max_arcs)
+    search = DeviceSearch(dev_graph.to(dev))
+    # no host copy in this mode: the search reads fp32 obs
+    forward_fn, train_fn = make_se_lattice_steps(
+        model, feat_fn, optimizer, log_prior=log_prior,
+        acoustic_scale=cfg.trainer.acoustic_scale, den_scale=cfg.trainer.den_scale,
+        drop_frames=cfg.trainer.drop_frames, ce_ratio=cfg.trainer.ce_ratio, criterion=crit,
+        pdf_to_phone=pdf_to_phone, silence=silence, obs_transfer_dtype="float32")
+    annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
+    annealer.restore_from_checkpoint(resume_meta, optimizer)
+    bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
+                        batch_sizes=cfg.trainer.batch_size)
+    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    step_no = 0
+    try:
+        for epoch in range(start_epoch, cfg.trainer.num_epochs):
+            loader = SeqDataloader(dataset, bucket, shuffle=cfg.data.shuffle,
+                                   seed=cfg.trainer.seed, num_workers=cfg.data.num_workers,
+                                   extras_fn=extras_fn)
+            loader.set_epoch(epoch)
+            tp = Throughput()
+            ep_obj = torch.zeros((), device=dev)
+            ep_frames = torch.zeros((), device=dev)
+            dropped_acc = torch.zeros((), dtype=torch.int64, device=dev)
+            synced_frames = 0.0
+            for batch in device_batches(equalized_steps(loader, iter(loader)), dev):
+                utt_ids = batch.pop("utt_ids")
+                marks = [_mark(dev)]
+                obs = forward_fn(batch)
+                marks.append(_mark(dev))
+                lat, _scores, dropped = search(
+                    obs, batch["num_frames"], max_active=max_active, max_arcs=max_arcs,
+                    beam=beam, lattice_beam=lat_beam)
+                dropped_acc += dropped.sum()
+                marks.append(_mark(dev))
+                lat, _ = _compact_band(lat, None)
+                marks.append(_mark(dev))
+                m = train_fn(batch, lat, gen)
+                marks.append(_mark(dev))
+                step_no += 1
+                ep_obj += m["objective"] * m["frames"]
+                ep_frames += m["frames"]
+                tp.update(len(utt_ids), 0.0)
+                if step_no % cfg.trainer.log_interval == 0:
+                    gf = float(ep_frames)
+                    tp.update(0, gf - synced_frames)
+                    synced_frames = gf
+                    u_s, f_s = tp.rates()
+                    obj, acc = float(m["objective"]), float(m["frame_acc"])
+                    n_dropped = int(dropped_acc)
+                    if n_dropped > 0:
+                        log.warning("device decoder dropped %d lattice links to the band "
+                                    "cap this epoch — widen -max_arcs (%d) or tighten "
+                                    "-lattice_beam", n_dropped, max_arcs)
+                    times = {k: _ms(a, b) for k, a, b in zip(
+                        ("forward_ms", "search_ms", "compact_ms", "train_ms"), marks, marks[1:])}
+                    lat_k, lat_a = lat.num_slots, lat.src.shape[2]
+                    log.info("epoch %d step %d %s(lat) %.4f acc %.4f | %.1f utt/s %.0f "
+                             "frames/s | K %d A %d dropped %d | %s", epoch, step_no, crit, obj,
+                             acc, u_s, f_s, lat_k, lat_a, n_dropped,
+                             " ".join(f"{k} {v:.1f}" for k, v in times.items()))
+                    metrics_log.log(epoch=epoch, step=step_no, objective=obj, frame_acc=acc,
+                                    utt_per_sec=u_s, frames_per_sec=f_s, lat_k=lat_k,
+                                    lat_a=lat_a, lattice_links_dropped=n_dropped, **times)
+            _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch,
+                       f"{crit}(lat)", ep_obj, ep_frames)
+    finally:
         metrics_log.close()
     return 0
 

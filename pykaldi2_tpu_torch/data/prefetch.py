@@ -4,7 +4,8 @@ Replaces pykaldi2_tpu/data/prefetch.py:device_prefetch. A background thread
 builds the numpy batches, pins them and copies them to the device with
 ``non_blocking=True`` on a side CUDA stream; the consumer's stream waits on
 the copy's event before it uses a batch, so the step never waits on the host.
-On the CPU the arrays are only wrapped as tensors.
+On the CPU the arrays are only wrapped as tensors. ``device_batches`` is the
+same without the thread, for consumers that capture CUDA graphs.
 """
 
 from __future__ import annotations
@@ -102,3 +103,12 @@ def device_prefetch(
                 pass
         t.join()
 
+
+
+def device_batches(batches: Iterable[dict], device: torch.device) -> Iterator[dict]:
+    """The batches' numpy arrays moved to ``device`` on the calling thread,
+    one batch at a time: for a consumer that captures CUDA graphs (the device
+    search), which no other thread's CUDA work may meet mid-capture."""
+    for batch in batches:
+        yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               if isinstance(v, np.ndarray) else v for k, v in batch.items()}

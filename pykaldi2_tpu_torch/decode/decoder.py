@@ -2,7 +2,8 @@
 
 Port of pykaldi2_tpu/decode/decoder.py: the same C ABI (``latdec_new``,
 ``latdec_decode``, ``latdec_search``, ``latdec_emit_lattice``,
-``latdec_free``), loaded from the
+``latdec_free``, and ``banded_trim_extract`` for the device search's
+epilogue, decode/device_lattice.py), loaded from the
 port's own build. At first use (or when the source is newer) ``g++`` compiles
 ``native/latdec.cc`` into ``build/native/liblatdec.so`` at the repository
 root, without ``-march=native``, so the library runs on whichever x86-64 host
@@ -75,6 +76,10 @@ def _load():
         lib.latdec_emit_lattice.argtypes = [
             ctypes.c_void_p, ip, ip, ip, fp, ctypes.c_int, ip, fp, ctypes.c_int,
             ip, ip, ip]
+        lib.banded_trim_extract.restype = ctypes.c_int
+        lib.banded_trim_extract.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ip, ip, ip, fp, ip, fp,
+            ip, ctypes.c_float, ip, ip, ip, ip, ip, fp, ip, ip, ip]
         _lib = lib
         return lib
 

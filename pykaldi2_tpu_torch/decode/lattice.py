@@ -72,6 +72,54 @@ def lattice_word_fst(
     return f.remove_input_epsilons().connect()
 
 
+def frame_lattice_best_path(lat: DenseFsa, frames: np.ndarray, loglikes=None,
+                            acoustic_scale: float = 1.0) -> Tuple[List[int], float]:
+    """Best word sequence of a time-synchronous lattice and its log-prob:
+    ``best_path(lattice_word_fst(lat, loglikes, frames, acoustic_scale))``
+    computed as one Viterbi pass over the frames, vectorised over each
+    frame's arcs (no word acceptor and no epsilon removal, which are Python
+    per arc and state: a lattice of the device search at wide beams holds
+    hundreds of thousands of states). Arc weights and finals are summed in
+    float64 as ``lattice_word_fst`` sums them. Raises ValueError when no
+    path reaches a final state."""
+    if lat.olabel is None:
+        raise ValueError("lattice has no word labels (olabel is None)")
+    frames = np.asarray(frames)
+    src, dst = np.asarray(lat.src, np.int64), np.asarray(lat.dst, np.int64)
+    w = lat.weight.astype(np.float64)
+    if loglikes is not None:
+        w = w + acoustic_scale * loglikes[frames[src], lat.pdf]
+    order = np.argsort(frames[src], kind="stable")
+    bounds = np.searchsorted(frames[src][order], np.arange(int(frames.max()) + 2))
+    best = np.full(lat.num_states, -np.inf)
+    best[lat.start] = 0.0
+    back = np.full(lat.num_states, -1, np.int64)
+    for t in range(len(bounds) - 1):
+        e = order[bounds[t]:bounds[t + 1]]
+        if not len(e):
+            continue
+        cand = best[src[e]] + w[e]
+        # per destination, its best arc (the first in arc order among ties)
+        o = np.lexsort((-cand, dst[e]))
+        first = np.ones(len(o), bool)
+        first[1:] = dst[e][o][1:] != dst[e][o][:-1]
+        win = e[o[first]]
+        ok = cand[o[first]] > best[dst[win]]
+        best[dst[win[ok]]] = cand[o[first]][ok]
+        back[dst[win[ok]]] = win[ok]
+    total = best + np.where(np.isfinite(lat.final), lat.final.astype(np.float64), -np.inf)
+    s = int(np.argmax(total))
+    if not np.isfinite(total[s]):
+        raise ValueError("no complete path in lattice")
+    score, words = float(total[s]), []
+    while back[s] >= 0:
+        a = back[s]
+        if lat.olabel[a] != EPS:
+            words.append(int(lat.olabel[a]))
+        s = int(src[a])
+    return words[::-1], score
+
+
 # ---------------------------------------------------------------------------
 # topological order + N-best
 # ---------------------------------------------------------------------------

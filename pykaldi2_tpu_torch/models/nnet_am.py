@@ -16,6 +16,8 @@ from torch import nn
 
 from pykaldi2_tpu_torch.config import ModelConfig
 from pykaldi2_tpu_torch.models.lstm import LSTMStack
+from pykaldi2_tpu_torch.models.tdnn import TDNNStack
+from pykaldi2_tpu_torch.models.transformer import TransformerStack
 from pykaldi2_tpu_torch.ops.lstm_cuda import linear
 
 
@@ -51,10 +53,14 @@ def build_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None) -
         nnet = LSTMStack(cfg.input_size, cfg.hidden_size, cfg.num_layers,
                          dropout=cfg.dropout, bidirectional=bidi, proj_size=cfg.proj_size,
                          compute_dtype=cd, generator=generator)
-    elif cfg.type in ("tdnn", "transformer"):
-        raise NotImplementedError(
-            f"model type {cfg.type!r} is not ported yet; it comes with the "
-            "other-backbones slice (ROADMAP.md Queue 1)")
+    elif cfg.type == "tdnn":
+        nnet = TDNNStack(cfg.input_size, cfg.hidden_size, dilations=cfg.tdnn_dilations,
+                         kernel=cfg.tdnn_kernel, dropout=cfg.dropout, compute_dtype=cd,
+                         generator=generator)
+    elif cfg.type == "transformer":
+        nnet = TransformerStack(cfg.input_size, cfg.hidden_size, cfg.num_layers,
+                                cfg.num_heads, cfg.ffn_size, dropout=cfg.dropout,
+                                compute_dtype=cd, generator=generator)
     else:
         raise ValueError(f"unknown model type {cfg.type!r}")
     return NnetAM(nnet, cfg.output_size, compute_dtype=cd, generator=generator)

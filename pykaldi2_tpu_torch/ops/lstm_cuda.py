@@ -90,6 +90,32 @@ class MatmulBf16(torch.autograd.Function):
         return gx, gw
 
 
+def bmm_bf16(a: Tensor, b: Tensor) -> Tensor:
+    """Batched ``mm_bf16``: a [N, M, K] @ b [N, K, L] → fp32 [N, M, L]. On
+    CUDA one cuBLAS batched bf16 GEMM with an fp32 output (``torch.bmm`` with
+    ``out_dtype``)."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        return torch.bmm(a16, b16, out_dtype=torch.float32)
+    return torch.bmm(a16.float(), b16.float())
+
+
+class BmmBf16(torch.autograd.Function):
+    """a [N, M, K] @ b [N, K, L] through ``bmm_bf16``, gradients likewise."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return bmm_bf16(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = bmm_bf16(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        gb = bmm_bf16(a.transpose(1, 2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def linear(x: Tensor, w: Tensor, compute_dtype: torch.dtype) -> Tensor:
     """x [..., K] @ w [K, M] → fp32 [..., M]; bf16 operands when
     ``compute_dtype`` is bfloat16, plain fp32 otherwise."""

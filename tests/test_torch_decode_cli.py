@@ -9,7 +9,10 @@ posterior-weighted times (s) and confidences, which carry the two packages'
 bf16 differences, agree within ``POST_TOL`` and ``CTM_TOL``. The argv carries a word insertion penalty:
 on a free word loop without one, the consensus (MBR) hypothesis is a long
 run of re-entered words whose length turns on score differences far below
-those bf16 differences. The accelerator decoders raise in the port.
+those bf16 differences. The accelerator decoders (``-decoder device``, with
+and without a lattice mode, and ``-on_device``) give the JAX CLI's
+hypotheses on the same argv, and ``-max_arcs`` (fault F4) is accepted with
+every decoder, as the reference parses it.
 """
 
 import os
@@ -140,6 +143,46 @@ def test_decode_cli_matches_jax(setup, capsys, monkeypatch, mode):
 
 @pytest.mark.parametrize("flags", [["-decoder", "device"], ["-on_device"]])
 def test_decode_cli_accelerator_decoders_raise(setup, flags):
-    _, base = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        port_decode(base + flags, device="cpu")
+    """The accelerator decoders run; they raise, as the reference does, only
+    on option combinations they cannot serve."""
+    tmp, base = setup
+    out = tmp / f"run_{flags[-1].lstrip('-')}"
+    out.mkdir()
+    assert port_decode(base + flags + ["-hyp_out", str(out / "hyp.txt")], device="cpu") == 0
+    assert len((out / "hyp.txt").read_text().splitlines()) == 3
+    other = ["-on_device"] if flags[0] == "-decoder" else ["-nbest", "2"]
+    with pytest.raises(SystemExit, match="-on_device"):
+        port_decode(base + flags + other, device="cpu")
+
+
+@pytest.mark.parametrize("mode", [
+    ["-decoder", "device", "-max_active", "200", "-max_arcs", "256"],
+    ["-on_device"],
+    ["-decoder", "device", "-max_active", "200", "-nbest", "3", "-nbest_out",
+     "{out}/nbest.txt", "-lattice_out", "{out}/lat.txt", "-oracle"],
+    ["-decoder", "host", "-max_arcs", "512"],
+], ids=["device", "on_device", "device_nbest", "host_max_arcs"])
+def test_decode_cli_device_decoders_match_jax(setup, capsys, monkeypatch, mode):
+    """One argv through both CLIs: the same hypotheses, WER lines and N-best
+    word strings; the host decoder takes ``-max_arcs`` (F4) and ignores it,
+    as the reference does."""
+    monkeypatch.setenv("PK2_PLATFORM", "cpu")
+    tmp, base = setup
+    outs = {}
+    for name, fn, kw in (("jax", jax_decode, {}), ("port", port_decode, {"device": "cpu"})):
+        out = tmp / f"{name}_acc_{'_'.join(m.lstrip('-') for m in mode if m.startswith('-'))}"
+        out.mkdir()
+        argv = base + ["-hyp_out", str(out / "hyp.txt")] + [m.format(out=out) for m in mode]
+        outs[name] = (out, _run(fn, argv, capsys, **kw))
+    (jout, jwer), (pout, pwer) = outs["jax"], outs["port"]
+    assert pwer == jwer and any(line.startswith("%WER") for line in pwer)
+    hyp = (pout / "hyp.txt").read_text()
+    assert hyp == (jout / "hyp.txt").read_text() and len(hyp.splitlines()) == 3
+    if (jout / "nbest.txt").exists():
+        def strings(path):
+            return [(ln.split()[0], ln.split()[2:]) for ln in path.read_text().splitlines()]
+        assert strings(pout / "nbest.txt") == strings(jout / "nbest.txt")
+        got, want = (_read_lattices(out / "lat.txt") for out in (pout, jout))
+        assert sorted(got) == sorted(want)
+        for uid in want:
+            assert best_path(got[uid])[0] == best_path(want[uid])[0]

@@ -295,9 +295,16 @@ def test_unported_model_options_raise():
     assert stack.output_size == 8
     with torch.no_grad():
         assert stack(torch.randn(2, 5, 8)).shape == (2, 5, 8)
-    for kind in ("tdnn", "transformer"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(ModelConfig(type=kind))
+    # tdnn and transformer build and run (tests/test_torch_backbones.py holds
+    # them to the JAX package); an unknown type still raises
+    for kind, extra in (("tdnn", {"tdnn_dilations": (1, 2)}),
+                        ("transformer", {"num_heads": 2, "ffn_size": 16})):
+        model = build_model(ModelConfig(type=kind, input_size=8, hidden_size=16, num_layers=2,
+                                        output_size=5, compute_dtype="float32", **extra))
+        with torch.no_grad():
+            assert model(torch.randn(2, 5, 8), torch.ones(2, 5)).shape == (2, 5, 5)
+    with pytest.raises(ValueError, match="unknown model type"):
+        build_model(ModelConfig(type="cnn"))
 
 
 def test_dropout_draws_from_generator():

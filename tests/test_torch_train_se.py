@@ -11,7 +11,10 @@
     finishes with a finite objective, and its checkpoint loads in the JAX
     package's ``load_checkpoint``; and the same run from the same seed model
     through both CLIs gives the same per-step objectives, which holds the
-    decode/train overlap to the reference's one-step staleness.
+    decode/train overlap to the reference's one-step staleness;
+  * ``-on_the_fly -decoder device`` (the device search, same-step
+    parameters) under MMI and sMBR through both CLIs: the same per-step
+    objectives, and ``lattice_links_dropped`` in ``metrics.jsonl``.
 """
 
 import json
@@ -198,9 +201,53 @@ def test_train_se_cli_tracks_jax_cli(tmp_path, pallas_interpret, monkeypatch):
         np.testing.assert_allclose(a["frame_acc"], b["frame_acc"], atol=1e-6)
 
 
+@pytest.mark.parametrize("criterion", ["mmi", "smbr"])
+def test_train_se_device_decoder_tracks_jax_cli(tmp_path, pallas_interpret, monkeypatch,
+                                                criterion):
+    """-on_the_fly -decoder device through both CLIs from one seed model: the
+    same device lattices from the same-step parameters, the same per-step
+    objectives (the host-decoder test's tolerance), and the dropped-link
+    count logged."""
+    monkeypatch.setenv("PK2_PLATFORM", "cpu")
+    cfg_path, cfg = _cli_config(tmp_path, num_epochs=1)
+    jm, params = _jax_template(cfg)
+    tm = build_model(C.ModelConfig(**{**cfg["model"], "input_size": 24}))
+    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    seed = str(tmp_path / "seed.npz")
+    save_checkpoint(seed, tm)
+    # K = 16 frontier slots of 8 in-arcs each: a band of 128 drops nothing (a
+    # band cut mid-way keeps links by score ranks that fp32 noise reorders)
+    argv = ["-config", cfg_path, "-on_the_fly", "-decoder", "device", "-criterion", criterion,
+            "-max_active", "16", "-max_arcs", "128", "-seed_model", seed]
+    assert jax_se_main(argv + ["-exp_dir", str(tmp_path / "jax"), "-single_device"]) == 0
+    assert main(argv + ["-exp_dir", str(tmp_path / "port")]) == 0
+    jr, tr = _step_records(str(tmp_path / "jax")), _step_records(str(tmp_path / "port"))
+    assert len(jr) == len(tr) == 2
+    for a, b in zip(tr, jr):
+        np.testing.assert_allclose(a["objective"], b["objective"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(a["frame_acc"], b["frame_acc"], atol=1e-6)
+        assert a["lattice_links_dropped"] == b["lattice_links_dropped"] == 0
+        for key in ("forward_ms", "search_ms", "compact_ms", "train_ms", "lat_k", "lat_a"):
+            assert key in a
+
+
+def test_train_se_device_decoder_trains(tmp_path, monkeypatch):
+    """-on_the_fly -decoder device (it raised before the device search was
+    ported) trains two epochs with finite objectives and a checkpoint."""
+    monkeypatch.setenv("PK2_PLATFORM", "cpu")
+    cfg_path, _ = _cli_config(tmp_path)
+    exp = str(tmp_path / "exp")
+    assert main(["-config", cfg_path, "-exp_dir", exp, "-on_the_fly", "-decoder", "device",
+                 "-criterion", "mpfe", "-max_arcs", "64"]) == 0
+    with open(os.path.join(exp, "model.1.npz.json")) as f:
+        assert np.isfinite(json.load(f)["objective"])
+    steps = _step_records(exp)
+    assert steps and all(np.isfinite(r["objective"]) for r in steps)
+    assert all(r["lat_a"] <= 64 for r in steps)
+
+
 @pytest.mark.parametrize("argv,err", [
     (["-multihost"], "DDP"),
-    (["-on_the_fly", "-decoder", "device"], "device-decoder"),
     (["-on_the_fly", "-multihost"], "DDP"),
 ])
 def test_train_se_unported_modes_raise(tmp_path, monkeypatch, argv, err):
