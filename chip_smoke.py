@@ -125,7 +125,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      utterances at max_active 8 (the lattice tools are Python); (d) on one
      batch of (b) and of (c) the captured search against the eager one:
      times a frame, the capture's host time and the device operations a
-     frame of the eager search (the graph's nodes).
+     frame of the eager search (the graph's nodes);
+ 15. the data-parallel paths, each in child processes: (a) in a one-rank
+     ``nccl`` group from torchrun's environment, ``bin/train_ce.main
+     -multihost`` on phase 3's corpus and config (K1-K3 launched in the
+     child), whose parameters must equal phase 3's run without a group
+     (1e-6 of each leaf's max |p|); (b) two ``gloo`` ranks on this one card
+     (nccl refuses two ranks on one device), each a half of phase 3's first
+     batch (2 x 32), one momentum step of the flagship from the same
+     weights against one process at B=64: rtol 3e-5, atol 3e-6, the ranks
+     bit-identical; (c) the same with bf16 gradient sums, against (b) at rtol
+     2e-2, atol 2e-3; (d) ``bin/train_se.main -multihost -on_the_fly
+     -decoder device -criterion mmi`` at phase 14(b)'s argv in a one-rank
+     nccl group, every collective and DDP forward recorded with whether the
+     stream was capturing: none inside the search's capture, K7/K8
+     launched, the parameters equal to phase 14(b)'s MMI run's; (e) the
+     flagship step queued with DDP against the same step without a process
+     group (in turns, one process), and the fenced wall of (b)'s step.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -3284,6 +3300,359 @@ def device_search_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str,
           f"device decode {t_end - t_c:.1f} s): {t_end - t_phase:.1f} s", flush=True)
 
 
+# phase 15: the data-parallel paths. (b)/(c) hold two ranks to one process at
+# the reference's bounds (tests/test_parallel.py:68, :157); (a) and (d) to the
+# run without a process group: relative to the leaf's max |p|
+P15_TOL = {"dp": {"rtol": 3e-5, "atol": 3e-6}, "bf16": {"rtol": 2e-2, "atol": 2e-3},
+           "same": 1e-6}
+P15_OPT = {"type": "momentum", "momentum": 0.9, "lr": 0.01, "grad_clip": 5.0}
+P15_TIMEOUT_S = 240
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(what: str, specs: list, envs: list) -> list:
+    """Start one ``rank_main`` child per spec (this script's functions, in
+    their own processes) with its environment, wait for all under one
+    timeout, kill every child on the way out; returns their JSON results."""
+    p15 = os.path.join(HERE, "build", "chip_smoke", "p15")
+    os.makedirs(p15, exist_ok=True)
+    procs, logs = [], []
+    try:
+        for i, (spec, env) in enumerate(zip(specs, envs)):
+            spec = dict(spec, out=os.path.join(p15, f"{what}{i}.json"))
+            path = os.path.join(p15, f"{what}{i}.spec.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            logs.append(open(os.path.join(p15, f"{what}{i}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.rank_main({path!r})"],
+                cwd=HERE, env={**os.environ, **env}, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + P15_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 15 {what}: a rank did not finish in {P15_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    out = []
+    for i, p in enumerate(procs):
+        with open(os.path.join(p15, f"{what}{i}.log")) as f:
+            log = f.read()
+        if p.returncode != 0:
+            fail(f"phase 15 {what}: rank {i} exited {p.returncode}:\n{log[-4000:]}")
+        with open(os.path.join(p15, f"{what}{i}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def torchrun_env(port: int) -> dict:
+    """torchrun's variables for a one-rank group on this card."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def rank_main(spec_path: str) -> None:
+    """A child of phase 15: runs ``spec["job"]`` and writes its JSON result."""
+    sys.path.insert(0, HERE)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = {"ce_ddp": p15_ce_ddp, "two_ranks": p15_two_ranks, "se_ddp": p15_se_ddp}[
+        spec["job"]](spec)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def p15_batch(spec: dict, dev):
+    """Phase 3's first batch of B x T (no shuffle), the flagship's frontend
+    and config with dropout 0."""
+    import torch
+
+    from pykaldi2_tpu_torch.config import load_config, load_data_config
+    from pykaldi2_tpu_torch.data.dataloader import ChunkDataloader
+    from pykaldi2_tpu_torch.pipeline import build_frontend
+
+    cfg = load_config(spec["cfg"])
+    cfg.data = load_data_config(spec["data"])
+    dataset, feat_fn, _ = build_frontend(cfg.data)
+    cfg.model.input_size = feat_fn.dim
+    cfg.model.dropout = 0.0
+    batch = next(iter(ChunkDataloader(dataset, B, T, shuffle=False)))
+    return cfg, feat_fn, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def p15_model(cfg, dev, opt_cfg=None):
+    import torch
+
+    from pykaldi2_tpu_torch.config import OptimizerConfig
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.utils import make_optimizer
+
+    model = build_model(cfg.model, generator=torch.Generator().manual_seed(11)).to(dev)
+    opt = make_optimizer(OptimizerConfig(**opt_cfg) if opt_cfg else cfg.optimizer,
+                         model.parameters())
+    return model, opt
+
+
+def queued_ms(step, batch, gen, n: int = 50) -> float:
+    import torch
+
+    for _ in range(3):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        m = step(batch, gen)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def p15_ce_ddp(spec: dict) -> dict:
+    """(a) in a one-rank nccl group from torchrun's environment:
+    ``bin/train_ce.main -multihost`` on phase 3's corpus and config with the
+    counts zeroed and read around it; then (e) the flagship step queued with
+    DDP and without a process group, in turns."""
+    import torch
+
+    from pykaldi2_tpu_torch.bin import train_ce
+    from pykaldi2_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from pykaldi2_tpu_torch.trainer import make_ce_train_step
+
+    dev, _ = init_distributed(True)  # env:// and nccl, as under torchrun
+    backend = torch.distributed.get_backend()
+    zero_counts()
+    rc = train_ce.main(["-config", spec["cfg"], "-data", spec["data"], "-exp_dir", spec["exp"],
+                        "-multihost"])
+    launches = read_counts()
+    cfg, feat_fn, batch = p15_batch(spec, dev)
+    mesh = make_mesh()
+    steps = {}
+    for what in ("plain", "ddp"):
+        model, opt = p15_model(cfg, dev)
+        steps[what] = make_ce_train_step(model, feat_fn, opt, mesh if what == "ddp" else None)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    times = {"plain": [], "ddp": []}
+    for what in ("plain", "ddp", "ddp", "plain"):
+        times[what].append(queued_ms(steps[what], batch, gen))
+    torch.distributed.destroy_process_group()
+    return {"rc": rc, "launches": launches, "backend": backend, "times": times}
+
+
+def p15_two_ranks(spec: dict) -> dict:
+    """(b)/(c): one of two gloo ranks on this card (a FileStore), its half of
+    phase 3's first batch; one momentum step with fp32 sums, one from the same
+    weights with bf16 sums, each saved; then fenced fp32 steps for the wall."""
+    import torch
+    import torch.distributed as dist
+
+    from pykaldi2_tpu_torch.parallel.mesh import make_mesh
+    from pykaldi2_tpu_torch.trainer import make_ce_train_step
+
+    rank = spec["rank"]
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}", rank=rank,
+                            world_size=2)
+    dev = torch.device("cuda", 0)
+    cfg, feat_fn, batch = p15_batch(spec, dev)
+    half = {k: v[rank * B // 2:(rank + 1) * B // 2] for k, v in batch.items()}
+    mesh = make_mesh()
+    out, steps = {"walls_ms": []}, {}
+    for comp in ("none", "bf16"):
+        model, opt = p15_model(cfg, dev, P15_OPT)
+        steps[comp] = make_ce_train_step(model, feat_fn, opt, mesh, grad_compression=comp)
+        out[f"loss_{comp}"] = float(steps[comp](half)["loss"])
+        torch.save(model.state_dict(), spec[f"params_{comp}"])
+    for _ in range(5):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        steps["none"](half)
+        torch.cuda.synchronize()
+        out["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+    dist.destroy_process_group()
+    return out
+
+
+def p15_se_ddp(spec: dict) -> dict:
+    """(d) in a one-rank nccl group: ``bin/train_se.main -multihost
+    -on_the_fly -decoder device -criterion mmi`` at phase 14(b)'s argv, every
+    torch.distributed collective and DDP forward recorded with whether the
+    current stream was capturing a CUDA graph, and the captures counted."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from pykaldi2_tpu_torch.bin import train_se
+
+    seen = {"collectives": 0, "in_capture": 0, "captures": 0}
+
+    def watch(fn):
+        def call(*a, **kw):
+            seen["collectives"] += 1
+            seen["in_capture"] += int(torch.cuda.is_current_stream_capturing())
+            return fn(*a, **kw)
+        return call
+
+    for name in ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "barrier",
+                 "all_gather_into_tensor", "reduce_scatter_tensor", "_broadcast_coalesced"):
+        if hasattr(dist, name):
+            setattr(dist, name, watch(getattr(dist, name)))
+    DistributedDataParallel.forward = watch(DistributedDataParallel.forward)
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, *a, **kw):
+        seen["captures"] += 1
+        return begin(self, *a, **kw)
+
+    torch.cuda.CUDAGraph.capture_begin = capture_begin
+    zero_counts()
+    rc = train_se.main(spec["argv"] + ["-multihost"])
+    return {"rc": rc, "launches": read_counts(), "seen": seen,
+            "steps": step_records(spec["exp"])}
+
+
+def p15_same(what: str, got: dict, want: dict, tol: float) -> float:
+    """Largest |got − want| / max|want| over the leaves; fails above tol."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        g = got[k].to(w.device).float()
+        rel = float((g - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, k
+    print(f"{what}: largest difference {worst:.3e} of the leaf's max |p| ({where or 'none'}; "
+          f"tolerance {tol:g})", flush=True)
+    if not worst <= tol:
+        fail(f"{what}: parameters differ by {worst:.3e} relative (> {tol:g}) in {where}")
+    return worst
+
+
+def p15_close(what: str, got: dict, want: dict, rtol: float, atol: float) -> None:
+    """allclose over every leaf; prints the largest |diff| / (atol + rtol|want|)."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        r = float(((got[k] - w).abs() / (atol + rtol * w.abs())).max())
+        if r > worst:
+            worst, where = r, k
+    print(f"{what}: largest |diff| is {worst:.3g} of atol {atol:g} + rtol {rtol:g}·|p| "
+          f"({where})", flush=True)
+    if not worst <= 1.0:
+        fail(f"{what}: parameters outside rtol {rtol:g}, atol {atol:g} ({where}: {worst:.3f})")
+
+
+def ckpt_params(path: str, dev) -> dict:
+    import numpy as np
+    import torch
+
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k]).to(dev) for k in z.files if k.startswith("['params']")}
+
+
+def parallel_phase(dev, root: str, exp: str, cfg_yaml: str, data_yaml: str, se_cfg: str,
+                   se_data: str, ce_ckpt: str) -> None:
+    """Phase 15: (a) ``train_ce -multihost`` in a one-rank nccl group equals
+    phase 3's run without a group; (b) two gloo ranks on this card against
+    one process; (c) the same with bf16 sums; (d) ``train_se -multihost
+    -decoder device`` equals phase 14(b)'s MMI run, no collective inside the
+    search's capture; (e) the times."""
+    import torch
+
+    from pykaldi2_tpu_torch.trainer import make_ce_train_step
+
+    t_phase = time.perf_counter()
+    p15 = os.path.join(root, "p15")
+    shutil.rmtree(p15, ignore_errors=True)
+    os.makedirs(p15)
+    base = {"cfg": cfg_yaml, "data": data_yaml}
+
+    (a,) = run_ranks("ce_ddp", [dict(base, job="ce_ddp", exp=os.path.join(p15, "ce"))],
+                     [torchrun_env(free_port())])
+    if a["rc"] != 0 or a["backend"] != "nccl":
+        fail(f"phase 15(a): train_ce -multihost returned {a['rc']} on {a['backend']}")
+    need_launches("DDP CE path (one nccl rank)", a["launches"],
+                  positive=("fbank", "lstm_fwd", "lstm_bwd"))
+    print(f"phase 15(a) launches: {json.dumps(a['launches'])}", flush=True)
+    p15_same("phase 15(a) train_ce -multihost (one nccl rank) vs phase 3 (no group)",
+             ckpt_params(os.path.join(p15, "ce", "model.0.npz"), dev),
+             ckpt_params(os.path.join(exp, "model.0.npz"), dev), P15_TOL["same"])
+    t_a = time.perf_counter()
+
+    store = os.path.join(p15, "pg_gloo")
+    specs = [dict(base, job="two_ranks", rank=r, store=store,
+                  params_none=os.path.join(p15, f"fp32_{r}.pt"),
+                  params_bf16=os.path.join(p15, f"bf16_{r}.pt")) for r in range(2)]
+    two = run_ranks("two_ranks", specs, [{}, {}])
+    cfg, feat_fn, batch = p15_batch(base, dev)
+    model, opt = p15_model(cfg, dev, P15_OPT)
+    single_loss = float(make_ce_train_step(model, feat_fn, opt)(batch)["loss"])
+    single = model.state_dict()
+    ranks = {comp: [torch.load(s[f"params_{comp}"], map_location=dev) for s in specs]
+             for comp in ("none", "bf16")}
+    for comp, (r0, r1) in ranks.items():
+        for k in r0:
+            if not torch.equal(r0[k], r1[k]):
+                fail(f"phase 15({'b' if comp == 'none' else 'c'}): the two ranks' {k} differ")
+    print(f"phase 15(b) two gloo ranks at B=2x{B // 2}: loss {two[0]['loss_none']:.6f} "
+          f"(one process at B={B}: {single_loss:.6f}); ranks bit-identical", flush=True)
+    p15_close("phase 15(b) two gloo ranks vs one process", ranks["none"][0], single,
+              **P15_TOL["dp"])
+    p15_close("phase 15(c) bf16 sums vs fp32 sums", ranks["bf16"][0], ranks["none"][0],
+              **P15_TOL["bf16"])
+    t_b = time.perf_counter()
+
+    mdl = os.path.join(root, "se_corpus", "final.mdl")
+    se_exp = os.path.join(p15, "se")
+    argv = ["-config", se_cfg, "-data", se_data, "-exp_dir", se_exp, "-on_the_fly",
+            "-decoder", "device", "-criterion", "mmi", "-seed_model", ce_ckpt,
+            "-trans_model", mdl, "-beam", str(DEV_SE["beam"]), "-lattice_beam",
+            str(DEV_SE["lattice_beam"]), "-max_active", str(DEV_SE["max_active"]),
+            "-max_arcs", str(DEV_SE["max_arcs"])]
+    (d,) = run_ranks("se_ddp", [dict(job="se_ddp", argv=argv, exp=se_exp)],
+                     [torchrun_env(free_port())])
+    seen = d["seen"]
+    print(f"phase 15(d) launches: {json.dumps(d['launches'])}; collectives and DDP forwards "
+          f"{seen['collectives']}, inside a capture {seen['in_capture']}, captures "
+          f"{seen['captures']}", flush=True)
+    if d["rc"] != 0 or len(d["steps"]) != SE_UTTS // SE_B:
+        fail(f"phase 15(d): train_se -multihost returned {d['rc']}, steps {d['steps']}")
+    need_launches("DDP device-search SE path (one nccl rank)", d["launches"],
+                  positive=("fbank", "lstm_fwd", "lstm_bwd", "latfb_logz_fwd",
+                            "latfb_occupancies_bwd"))
+    if seen["captures"] < 1 or seen["collectives"] < 1 or seen["in_capture"] != 0:
+        fail(f"phase 15(d): captures {seen['captures']}, collectives {seen['collectives']}, "
+             f"{seen['in_capture']} of them inside a capture")
+    p15_same("phase 15(d) train_se -multihost -decoder device (one nccl rank) vs phase 14(b)",
+             ckpt_params(os.path.join(se_exp, "model.0.npz"), dev),
+             ckpt_params(os.path.join(root, "se_dev_mmi", "model.0.npz"), dev),
+             P15_TOL["same"])
+    t_d = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    t = a["times"]
+    print(f"phase 15(e) [{smi}]: flagship CE step queued (50 steps, B={B}x{T}) without a "
+          f"process group {t['plain'][0]:.3f}, {t['plain'][1]:.3f} ms; with DDP over one "
+          f"nccl rank {t['ddp'][0]:.3f}, {t['ddp'][1]:.3f} ms (turns: plain, DDP, DDP, "
+          f"plain); two gloo ranks on this card, fenced step wall (B=2x{B // 2}, momentum): "
+          f"rank 0 {', '.join(f'{w:.1f}' for w in two[0]['walls_ms'])} ms, rank 1 "
+          f"{', '.join(f'{w:.1f}' for w in two[1]['walls_ms'])} ms", flush=True)
+    print(f"phase 15 ((a) {t_a - t_phase:.1f} s, (b)/(c) {t_b - t_a:.1f} s, (d) "
+          f"{t_d - t_b:.1f} s): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3348,6 +3717,8 @@ def main() -> int:
     align_graph_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
     device_search_phase(dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data, se_ckpt,
                         dec, data_yaml, base)
+    parallel_phase(dev, root, exp, cfg_yaml, data_yaml, se_cfg, se_data,
+                   os.path.join(exp, "model.0.npz"))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

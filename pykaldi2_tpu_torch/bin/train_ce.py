@@ -9,7 +9,17 @@ pykaldi2/bin/train_ce.py):
 Runs on one CUDA device unless ``PK2_PLATFORM=cpu`` (or ``main(..., device=
 "cpu")``) asks for the CPU. Writes ``metrics.jsonl``, ``train.log`` and one
 ``model.<epoch>.npz`` checkpoint per epoch, in the JAX package's format.
-Multi-host and mesh options come with the DDP slice and raise until then.
+
+Data parallel: one process per card under ``torchrun`` (``torchrun
+--nproc_per_node=N -m pykaldi2_tpu_torch.bin.train_ce ...``; ``-multihost``
+or ``WORLD_SIZE`` in the environment starts the process group, ``nccl`` on
+CUDA, ``gloo`` on the CPU). ``trainer.mesh_shape`` lays the ranks out on
+``data`` (and ``model``) axes; each ``data`` rank reads ``batch_size //
+data ranks`` rows of its own loader shard, both loops stop at the smallest
+rank's batch count, gradients are summed over the ``data`` group
+(``grad_compression: bf16`` rounds them to bf16 first), and every rank
+writes its checkpoint to the ``-exp_dir`` it was given; rank 0 writes the
+metrics and the log file.
 """
 
 from __future__ import annotations
@@ -24,8 +34,9 @@ from pykaldi2_tpu_torch.config import load_config, load_data_config
 from pykaldi2_tpu_torch.data.dataloader import ChunkDataloader
 from pykaldi2_tpu_torch.data.dataset import SpeechDataset
 from pykaldi2_tpu_torch.data.prefetch import device_prefetch
-from pykaldi2_tpu_torch.device import resolve_device
 from pykaldi2_tpu_torch.models import build_model
+from pykaldi2_tpu_torch.parallel.mesh import (describe, equalized_steps, init_distributed,
+                                              local_batch_shard, make_mesh, rank_seed)
 from pykaldi2_tpu_torch.pipeline import build_frontend
 from pykaldi2_tpu_torch.trainer import Throughput, make_ce_train_step, make_eval_step
 from pykaldi2_tpu_torch.utils import (
@@ -59,11 +70,13 @@ def build_argparser():
     p.add_argument("-dropout", type=float, default=None)
     p.add_argument("-log_interval", type=int, default=None)
     p.add_argument("-multihost", action="store_true",
-                   help="multi-host training (not ported yet: comes with the DDP slice)")
+                   help="join a torch.distributed process group from torchrun's "
+                        "environment (env://; nccl on CUDA, gloo on the CPU): data "
+                        "sharded by rank, gradients summed over the data group")
     p.add_argument("-debug_nans", action="store_true",
                    help="torch.autograd anomaly detection (sanitizer mode)")
     p.add_argument("-single_device", action="store_true",
-                   help="accepted for the reference's CLI; the port runs on one device")
+                   help="one process on one device: no process group, no mesh (debug)")
     p.add_argument("-profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of steps "
                         f"{PROFILE_START}..{PROFILE_START + PROFILE_STEPS} into DIR")
@@ -81,17 +94,18 @@ def _profiler(dev: torch.device):
 
 def main(argv=None, device: Optional[str] = None):
     args = build_argparser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("-multihost comes with the DDP slice (ROADMAP.md Queue 1)")
-    dev = resolve_device(device)
+    dev, own_group = init_distributed(args.multihost, args.single_device, device)
+    try:
+        return _main(args, dev)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, dev: torch.device):
     cfg = load_config(args.config)
     if args.data:
         cfg.data = load_data_config(args.data)
-    if cfg.trainer.mesh_shape:
-        raise NotImplementedError(
-            "trainer.mesh_shape (data/model parallel meshes) comes with the DDP slice")
-    if cfg.optimizer.grad_compression != "none":
-        raise NotImplementedError("gradient compression comes with the DDP slice")
     if args.lr is not None:
         cfg.optimizer.lr = args.lr
     for name in ("batch_size", "num_epochs", "sweep_size", "log_interval"):
@@ -102,10 +116,18 @@ def main(argv=None, device: Optional[str] = None):
     cfg.trainer.exp_dir = args.exp_dir
     torch.autograd.set_detect_anomaly(args.debug_nans)
 
-    log = setup_logging(args.exp_dir)
-    metrics_log = MetricsLogger(args.exp_dir)
+    mesh = None if args.single_device else make_mesh(cfg.trainer.mesh_shape)
+    d_rank, d_world = local_batch_shard(mesh)
+    rank0 = mesh is None or not mesh.distributed or torch.distributed.get_rank() == 0
+    log = setup_logging(args.exp_dir, rank=0 if rank0 else 1)
+    metrics_log = MetricsLogger(args.exp_dir, rank=0 if rank0 else 1)
+    if cfg.trainer.batch_size % d_world:
+        raise SystemExit(f"batch_size {cfg.trainer.batch_size} not divisible by {d_world} "
+                         f"data ranks")
+    local_batch = cfg.trainer.batch_size // d_world
     log.info("device: %s%s", dev,
              f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
+    log.info(describe(mesh, dev))
 
     dataset, feat_fn, extras_fn = build_frontend(cfg.data)
     cv_dataset = None
@@ -130,8 +152,9 @@ def main(argv=None, device: Optional[str] = None):
         load_checkpoint(args.seed_model, model)
         log.info("seeded params from %s", args.seed_model)
 
-    train_step = make_ce_train_step(model, feat_fn, optimizer)
-    eval_step = make_eval_step(model, feat_fn) if cv_dataset is not None else None
+    train_step = make_ce_train_step(model, feat_fn, optimizer, mesh,
+                                    grad_compression=cfg.optimizer.grad_compression)
+    eval_step = make_eval_step(model, feat_fn, mesh) if cv_dataset is not None else None
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
 
@@ -139,16 +162,18 @@ def main(argv=None, device: Optional[str] = None):
     log.info("model: %s input=%d params=%.2fM output=%d",
              cfg.model.type, feat_fn.dim, num_params / 1e6, cfg.model.output_size)
 
-    # dither and dropout draw from one device generator, seeded per run
-    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    # dither and dropout draw from one device generator, seeded per run and
+    # data rank (rank 0's seed is the single-process seed)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(cfg.trainer.seed + 1, mesh))
     profiler = None
     step_no = 0
     for epoch in range(start_epoch, cfg.trainer.num_epochs):
         sweep_world = max(int(round(1.0 / max(cfg.trainer.sweep_size, 1e-6))), 1)
         loader = ChunkDataloader(
-            dataset, cfg.trainer.batch_size, cfg.trainer.chunk_len,
+            dataset, local_batch, cfg.trainer.chunk_len,
             # sweep_size < 1 visits a rotating 1/sweep_size slice per epoch
-            rank=epoch % sweep_world, world_size=sweep_world,
+            rank=d_rank * sweep_world + epoch % sweep_world,
+            world_size=d_world * sweep_world,
             shuffle=cfg.data.shuffle, seed=cfg.trainer.seed,
             num_workers=cfg.data.num_workers,
             extras_fn=extras_fn, chunk_overlap=cfg.trainer.chunk_overlap,
@@ -158,7 +183,8 @@ def main(argv=None, device: Optional[str] = None):
         ep_nll = torch.zeros((), device=dev)
         ep_frames = torch.zeros((), device=dev)
         synced_frames = 0.0
-        for batch in device_prefetch(loader, dev):
+        # every step holds collectives: stop at the smallest rank's count
+        for batch in device_prefetch(equalized_steps(loader, iter(loader)), dev):
             if args.profile and step_no == PROFILE_START and profiler is None:
                 profiler = _profiler(dev)
                 profiler.__enter__()
@@ -171,10 +197,12 @@ def main(argv=None, device: Optional[str] = None):
             # the host wait for the device and drain the prefetch run-ahead
             ep_nll += m["loss"] * m["frames"]
             ep_frames += m["frames"]
-            tp.update(cfg.trainer.batch_size, 0.0)
+            tp.update(local_batch, 0.0)
             if step_no % cfg.trainer.log_interval == 0:
                 gf = float(ep_frames)
-                tp.update(0, gf - synced_frames)
+                # per-process rates (the reference logs per-rank throughput):
+                # the global frame count over the data ranks
+                tp.update(0, (gf - synced_frames) / d_world)
                 synced_frames = gf
                 u_s, f_s = tp.rates()
                 loss, acc = float(m["loss"]), float(m["frame_acc"])
@@ -190,10 +218,11 @@ def main(argv=None, device: Optional[str] = None):
         if eval_step is not None:
             cv_nll = cv_frames = 0.0
             cv_loader = ChunkDataloader(
-                cv_dataset, cfg.trainer.batch_size, cfg.trainer.chunk_len, shuffle=False,
+                cv_dataset, local_batch, cfg.trainer.chunk_len, rank=d_rank,
+                world_size=d_world, shuffle=False,
                 extras_fn=feat_fn.batch_extras if feat_fn.has_extras else None,
                 chunk_overlap=cfg.trainer.chunk_overlap)
-            for cb in device_prefetch(cv_loader, dev):
+            for cb in device_prefetch(equalized_steps(cv_loader, iter(cv_loader)), dev):
                 nll, cnt, _cor = eval_step(cb)
                 cv_nll += float(nll)
                 cv_frames += float(cnt)

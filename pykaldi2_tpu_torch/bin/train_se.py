@@ -32,7 +32,15 @@ Two modes, as in the reference:
     at ``log_interval``.
 
 Runs on one CUDA device unless ``PK2_PLATFORM=cpu`` (or ``main(...,
-device="cpu")``) asks for the CPU. ``-multihost`` raises until its slice.
+device="cpu")``) asks for the CPU. Data parallel on every route as
+bin/train_ce.py: one process per card under ``torchrun`` (``-multihost`` or
+``WORLD_SIZE`` starts the group), ``trainer.mesh_shape`` and
+``grad_compression`` honoured; each ``data`` rank takes its own shard of
+whole utterances in batches of the bucket's batch size over the ``data``
+ranks, and every loop stops at the smallest rank's batch count. Ranks step
+on their own T (and lattice K and A): no collective depends on a shape, so
+nothing is padded across ranks. The eval forward, the host decode and the
+device search run each rank's own rows outside DDP.
 """
 
 from __future__ import annotations
@@ -49,13 +57,14 @@ import torch
 from pykaldi2_tpu_torch.config import load_config, load_data_config
 from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
 from pykaldi2_tpu_torch.data.prefetch import device_batches, device_prefetch
-from pykaldi2_tpu_torch.device import resolve_device
 from pykaldi2_tpu_torch.graph import (HmmTopology, TransitionModel, estimate_phone_bigram,
                                       make_den_graph)
 from pykaldi2_tpu_torch.graph.phone_lm import collapse_to_phones
 from pykaldi2_tpu_torch.models import build_model
 from pykaldi2_tpu_torch.ops.fsa import load_fsa
 from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
+from pykaldi2_tpu_torch.parallel.mesh import (describe, equalized_steps, init_distributed,
+                                              local_batch_shard, make_mesh, rank_seed)
 from pykaldi2_tpu_torch.pipeline import build_frontend
 from pykaldi2_tpu_torch.trainer import Throughput
 from pykaldi2_tpu_torch.utils import (
@@ -89,11 +98,13 @@ def build_argparser():
     p.add_argument("-ce_ratio", type=float, default=None)
     p.add_argument("-no_drop_frames", action="store_true")
     p.add_argument("-multihost", action="store_true",
-                   help="multi-host training (not ported yet: comes with the DDP slice)")
+                   help="join a torch.distributed process group from torchrun's "
+                        "environment (env://; nccl on CUDA, gloo on the CPU): data "
+                        "sharded by rank, gradients summed over the data group")
     p.add_argument("-debug_nans", action="store_true",
                    help="torch.autograd anomaly detection (sanitizer mode)")
     p.add_argument("-single_device", action="store_true",
-                   help="accepted for the reference's CLI; the port runs on one device")
+                   help="one process on one device: no process group, no mesh (debug)")
     p.add_argument("-log_interval", type=int, default=None)
     p.add_argument("-on_the_fly", action="store_true",
                    help="decode per-utterance denominator lattices with the "
@@ -184,19 +195,47 @@ def phone_loop_den_fst(tm: TransitionModel, lm: dict):
     return expand_to_pdf_fst(f, tm)
 
 
+class Parallel:
+    """The run's data-parallel layout: the mesh (None under -single_device),
+    this rank's data shard, its batch sizes and generator seed."""
+
+    def __init__(self, mesh, cfg):
+        self.mesh = mesh
+        self.rank, self.world = local_batch_shard(mesh)
+        self.rank0 = mesh is None or not mesh.distributed or torch.distributed.get_rank() == 0
+        self.compression = cfg.optimizer.grad_compression
+        self.seed = rank_seed(cfg.trainer.seed + 1, mesh)
+        sizes = cfg.trainer.batch_size
+        per = [sizes] if isinstance(sizes, int) else list(sizes)
+        if any(b % self.world for b in per):
+            raise SystemExit(f"batch_size {sizes} not divisible by {self.world} data ranks")
+        local = [b // self.world for b in per]
+        self.bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
+                                 batch_sizes=local[0] if isinstance(sizes, int) else local)
+
+    def loader(self, dataset, cfg, epoch: int, extras_fn):
+        loader = SeqDataloader(dataset, self.bucket, rank=self.rank, world_size=self.world,
+                               shuffle=cfg.data.shuffle, seed=cfg.trainer.seed,
+                               num_workers=cfg.data.num_workers, extras_fn=extras_fn)
+        loader.set_epoch(epoch)
+        # every step holds collectives: stop at the smallest rank's count
+        return equalized_steps(loader, iter(loader))
+
+
 def main(argv=None, device: Optional[str] = None):
     args = build_argparser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("-multihost comes with the DDP slice (ROADMAP.md Queue 1)")
-    dev = resolve_device(device)
+    dev, own_group = init_distributed(args.multihost, args.single_device, device)
+    try:
+        return _main(args, dev)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, dev: torch.device):
     cfg = load_config(args.config)
     if args.data:
         cfg.data = load_data_config(args.data)
-    if cfg.trainer.mesh_shape:
-        raise NotImplementedError(
-            "trainer.mesh_shape (data/model parallel meshes) comes with the DDP slice")
-    if cfg.optimizer.grad_compression != "none":
-        raise NotImplementedError("gradient compression comes with the DDP slice")
     if args.lr is not None:
         cfg.optimizer.lr = args.lr
     for name in ("batch_size", "num_epochs", "log_interval"):
@@ -215,10 +254,13 @@ def main(argv=None, device: Optional[str] = None):
     cfg.trainer.exp_dir = args.exp_dir
     torch.autograd.set_detect_anomaly(args.debug_nans)
 
-    log = setup_logging(args.exp_dir)
-    metrics_log = MetricsLogger(args.exp_dir)
+    mesh = None if args.single_device else make_mesh(cfg.trainer.mesh_shape)
+    par = Parallel(mesh, cfg)
+    log = setup_logging(args.exp_dir, rank=0 if par.rank0 else 1)
+    metrics_log = MetricsLogger(args.exp_dir, rank=0 if par.rank0 else 1)
     log.info("device: %s%s", dev,
              f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
+    log.info(describe(mesh, dev))
     dataset, feat_fn, extras_fn = build_frontend(cfg.data)
     if dataset.labels is None:
         raise SystemExit("train_se requires alignments (label_ark)")
@@ -270,12 +312,12 @@ def main(argv=None, device: Optional[str] = None):
 
     if args.on_the_fly:
         return _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
-                               tm, pdf_to_phone, log_prior, start_epoch, dev,
+                               tm, pdf_to_phone, log_prior, start_epoch, dev, par,
                                resume_meta=resume_meta, crit=crit, extras_fn=extras_fn,
                                silence=silence)
     den_packed = pack_denominator(args, cfg, log, dataset, tm, den, pdf_to_phone, crit)
     return _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
-                      den_packed, pdf_to_phone, log_prior, start_epoch, dev,
+                      den_packed, pdf_to_phone, log_prior, start_epoch, dev, par,
                       resume_meta=resume_meta, crit=crit, extras_fn=extras_fn, silence=silence)
 
 
@@ -310,7 +352,7 @@ def pack_denominator(args, cfg, log, dataset, tm, den, pdf_to_phone, crit: str):
 
 
 def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, den_packed,
-               pdf_to_phone, log_prior, start_epoch, dev, resume_meta=None, crit="mmi",
+               pdf_to_phone, log_prior, start_epoch, dev, par, resume_meta=None, crit="mmi",
                extras_fn=None, silence=None):
     """Fixed-denominator epochs: SeqDataloader buckets, one train step per
     batch, the plateau annealer, a checkpoint and ``metrics.jsonl`` lines
@@ -322,26 +364,22 @@ def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, 
         model, feat_fn, optimizer, den_packed, crit, log_prior=log_prior,
         acoustic_scale=cfg.trainer.acoustic_scale, den_scale=cfg.trainer.den_scale,
         drop_frames=cfg.trainer.drop_frames, ce_ratio=cfg.trainer.ce_ratio,
-        pdf_to_phone=pdf_to_phone, silence=silence)
+        pdf_to_phone=pdf_to_phone, silence=silence, mesh=par.mesh,
+        grad_compression=par.compression)
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
-    bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
-                        batch_sizes=cfg.trainer.batch_size)
-    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(par.seed)
     step_no = 0
     try:
         for epoch in range(start_epoch, cfg.trainer.num_epochs):
-            loader = SeqDataloader(dataset, bucket, shuffle=cfg.data.shuffle,
-                                   seed=cfg.trainer.seed, num_workers=cfg.data.num_workers,
-                                   extras_fn=extras_fn)
-            loader.set_epoch(epoch)
+            batches = par.loader(dataset, cfg, epoch, extras_fn)
             tp = Throughput()
             # device-scalar accumulation: reading a value per step would make
             # the host wait for the device
             ep_obj = torch.zeros((), device=dev)
             ep_frames = torch.zeros((), device=dev)
             synced_frames = 0.0
-            for batch in device_prefetch(equalized_steps(loader, iter(loader)), dev):
+            for batch in device_prefetch(batches, dev):
                 utt_ids = batch.pop("utt_ids")
                 start = _mark(dev)
                 m = step(batch, gen)
@@ -352,7 +390,8 @@ def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, 
                 tp.update(len(utt_ids), 0.0)
                 if step_no % cfg.trainer.log_interval == 0:
                     gf = float(ep_frames)
-                    tp.update(0, gf - synced_frames)
+                    # per-process rates: local utterances, global frames / ranks
+                    tp.update(0, (gf - synced_frames) / par.world)
                     synced_frames = gf
                     u_s, f_s = tp.rates()
                     obj, acc = float(m["objective"]), float(m["frame_acc"])
@@ -382,13 +421,6 @@ def _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch: int, w
                                              "anneal": annealer.state()})
     log.info("epoch %d done: %s objective %.4f → %s", epoch, what, ep, ckpt)
     metrics_log.log(epoch=epoch, epoch_objective=ep, lr_scale=scale)
-
-
-def equalized_steps(loader, batch_iter):
-    """Single-process form of pykaldi2_tpu/parallel/mesh.py:equalized_steps:
-    one process runs every batch, so the iterator passes through. Truncating
-    to the smallest per-process batch count comes with the DDP slice."""
-    return batch_iter
 
 
 def _mark(dev: torch.device):
@@ -436,7 +468,7 @@ def decode_batch(decoders, pool: ThreadPoolExecutor, obs: np.ndarray, nf: np.nda
 
 
 def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
-                    tm, pdf_to_phone, log_prior, start_epoch, dev, resume_meta=None,
+                    tm, pdf_to_phone, log_prior, start_epoch, dev, par, resume_meta=None,
                     crit="mmi", extras_fn=None, silence=None):
     """Reference train_se semantics: per-utterance denominator lattices
     decoded on the host per batch, forward-backward on the device.
@@ -447,7 +479,9 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     C++ search) while the device trains on N. Lattices therefore use
     one-step-stale parameters, exactly the reference's staleness; the
     optimizer updates parameters in place, so no forward may run off the
-    main thread. -no_overlap decodes strictly in-step.
+    main thread. -no_overlap decodes strictly in-step. Under a process group
+    only ``train_fn`` goes through DDP; the forward runs the module itself
+    and the decode threads call no torch collective.
 
     Each logged step also records its time split: ``forward_ms`` and
     ``train_ms`` on the device (CUDA events; host clock on the CPU),
@@ -473,7 +507,7 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     if args.decoder == "device":
         return _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model,
                                   optimizer, den_fst, (beam, lat_beam, max_active),
-                                  pdf_to_phone, log_prior, start_epoch, dev, resume_meta,
+                                  pdf_to_phone, log_prior, start_epoch, dev, par, resume_meta,
                                   crit, extras_fn, silence)
     n_threads = max(int(args.num_threads or 4), 1)
     decoders = [LatticeDecoder(den_fst, beam=beam, max_active=max_active,
@@ -488,14 +522,13 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
         log_prior=log_prior, acoustic_scale=cfg.trainer.acoustic_scale,
         den_scale=cfg.trainer.den_scale, drop_frames=cfg.trainer.drop_frames,
         ce_ratio=cfg.trainer.ce_ratio, criterion=crit,
-        pdf_to_phone=pdf_to_phone, silence=silence, obs_transfer_dtype=args.obs_transfer)
+        pdf_to_phone=pdf_to_phone, silence=silence, obs_transfer_dtype=args.obs_transfer,
+        mesh=par.mesh, grad_compression=par.compression)
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
-    bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
-                        batch_sizes=cfg.trainer.batch_size)
     utt_pool = ThreadPoolExecutor(max_workers=n_threads)
     pipe_pool = ThreadPoolExecutor(max_workers=1)
-    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(par.seed)
 
     def submit(batch):
         """Forward on the main thread with the current parameters, then the
@@ -516,10 +549,7 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     step_no = 0
     try:
         for epoch in range(start_epoch, cfg.trainer.num_epochs):
-            loader = SeqDataloader(dataset, bucket, shuffle=cfg.data.shuffle,
-                                   seed=cfg.trainer.seed, num_workers=cfg.data.num_workers,
-                                   extras_fn=extras_fn)
-            loader.set_epoch(epoch)
+            batches = par.loader(dataset, cfg, epoch, extras_fn)
             tp = Throughput()
             ep_obj = torch.zeros((), device=dev)
             ep_frames = torch.zeros((), device=dev)
@@ -554,7 +584,7 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
                                     lat_a=lat_a, **times)
 
             pending = None  # one-deep pipeline: decode N+1 while training on N
-            for batch in device_prefetch(equalized_steps(loader, iter(loader)), dev):
+            for batch in device_prefetch(batches, dev):
                 utt_ids = batch.pop("utt_ids")
                 item = (utt_ids, batch, *submit(batch))
                 if args.no_overlap:
@@ -575,8 +605,8 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
 
 
 def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer,
-                       den_fst, beams, pdf_to_phone, log_prior, start_epoch, dev, resume_meta,
-                       crit, extras_fn, silence):
+                       den_fst, beams, pdf_to_phone, log_prior, start_epoch, dev, par,
+                       resume_meta, crit, extras_fn, silence):
     """``-on_the_fly -decoder device``: per batch the eval forward, the batched
     beam search over the folded den graph (decode/device_lattice.py), the
     band's compaction (its one host sync) and the train step, all on the
@@ -586,7 +616,10 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
     records ``forward_ms``, ``search_ms``, ``compact_ms`` and ``train_ms``
     (CUDA events; the host clock on the CPU), the band's ``lat_k`` and
     ``lat_a`` after compaction, and ``lattice_links_dropped``, the epoch's
-    links cut to ``max_arcs`` so far (summed on the device)."""
+    links cut to ``max_arcs`` so far (summed on the device). Under a process
+    group only ``train_fn`` goes through DDP: the forward and the search
+    (whose CUDA-graph capture no collective may enter) run the module itself
+    on this rank's rows."""
     from pykaldi2_tpu_torch.decode.device_lattice import (DeviceSearch, _compact_band,
                                                           pack_decode_graph)
     from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
@@ -605,25 +638,21 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
         model, feat_fn, optimizer, log_prior=log_prior,
         acoustic_scale=cfg.trainer.acoustic_scale, den_scale=cfg.trainer.den_scale,
         drop_frames=cfg.trainer.drop_frames, ce_ratio=cfg.trainer.ce_ratio, criterion=crit,
-        pdf_to_phone=pdf_to_phone, silence=silence, obs_transfer_dtype="float32")
+        pdf_to_phone=pdf_to_phone, silence=silence, obs_transfer_dtype="float32",
+        mesh=par.mesh, grad_compression=par.compression)
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
-    bucket = BucketSpec(boundaries=tuple(cfg.trainer.bucket_boundaries),
-                        batch_sizes=cfg.trainer.batch_size)
-    gen = torch.Generator(device=dev).manual_seed(cfg.trainer.seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(par.seed)
     step_no = 0
     try:
         for epoch in range(start_epoch, cfg.trainer.num_epochs):
-            loader = SeqDataloader(dataset, bucket, shuffle=cfg.data.shuffle,
-                                   seed=cfg.trainer.seed, num_workers=cfg.data.num_workers,
-                                   extras_fn=extras_fn)
-            loader.set_epoch(epoch)
+            batches = par.loader(dataset, cfg, epoch, extras_fn)
             tp = Throughput()
             ep_obj = torch.zeros((), device=dev)
             ep_frames = torch.zeros((), device=dev)
             dropped_acc = torch.zeros((), dtype=torch.int64, device=dev)
             synced_frames = 0.0
-            for batch in device_batches(equalized_steps(loader, iter(loader)), dev):
+            for batch in device_batches(batches, dev):
                 utt_ids = batch.pop("utt_ids")
                 marks = [_mark(dev)]
                 obs = forward_fn(batch)
@@ -643,7 +672,7 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
                 tp.update(len(utt_ids), 0.0)
                 if step_no % cfg.trainer.log_interval == 0:
                     gf = float(ep_frames)
-                    tp.update(0, gf - synced_frames)
+                    tp.update(0, (gf - synced_frames) / par.world)
                     synced_frames = gf
                     u_s, f_s = tp.rates()
                     obj, acc = float(m["objective"]), float(m["frame_acc"])

@@ -6,8 +6,28 @@ train_ce.py's and train_se.py's hot loops — forward, loss, backward,
 clipped SGD/Adam step, loss/frame-acc logging). One step runs front end →
 model → loss → backward → optimizer update on the batch's device. Losses
 are normalized by the supervised frame count, so padding contributes
-exactly nothing. Data parallelism (the JAX mesh, bf16 gradient
-compression) comes with the DDP slice.
+exactly nothing.
+
+With a ``mesh`` (parallel/mesh.py) over a process group, each step's
+train forward runs through ``DistributedDataParallel`` over the ``data``
+group, as the reference's shard_map steps do over the ``data`` axis:
+
+  * the loss is the local sum over the GLOBAL supervised count (one
+    all-reduce of the detached count, before the backward), and the comm
+    hook of parallel/data_parallel.py SUMS the gradients (DDP's own hook
+    averages), so every rank holds the gradient of the global loss;
+  * ``grad_compression="bf16"`` rounds each local gradient bucket to bf16,
+    sums in bf16 and casts back (reference trainer.py:86-94); on a one-rank
+    mesh without a process group the gradients are rounded in place;
+  * the optimizer's global-norm clip then runs on the reduced gradients,
+    as optax's chain runs after the psum;
+  * the metrics (loss or objective, frame accuracy, frames, ce) are sums
+    over the group, so logs do not depend on the world size;
+  * eval forwards (``make_eval_step``, the lattice ``forward_fn``) call the
+    module itself, never the wrapper, so no collective runs off the main
+    thread or inside a CUDA-graph capture.
+
+The caller seeds each rank's generator (``parallel.mesh.rank_seed``).
 """
 
 from __future__ import annotations
@@ -18,6 +38,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from pykaldi2_tpu_torch.models.nnet_am import NnetAM
+from pykaldi2_tpu_torch.parallel.data_parallel import COMPRESSIONS, psum, wrap_ddp
+from pykaldi2_tpu_torch.parallel.mesh import Mesh
 from pykaldi2_tpu_torch.pipeline import FeaturePipeline
 from pykaldi2_tpu_torch.utils.lr import Optimizer
 
@@ -46,21 +68,51 @@ def ce_forward(model: NnetAM, feat_fn: FeaturePipeline, batch: dict,
     return sum_nll, count, correct
 
 
-def make_ce_train_step(model: NnetAM, feat_fn: FeaturePipeline,
-                       optimizer: Optimizer) -> Callable:
+def _data_parallel(model: NnetAM, mesh: Optional[Mesh], grad_compression: str):
+    """(data group or None, the train forward's module, round grads to bf16
+    locally): DDP over the mesh's ``data`` group when it has a process group."""
+    if grad_compression not in COMPRESSIONS:
+        raise ValueError(f"unknown grad_compression {grad_compression!r}")
+    if mesh is None or not mesh.distributed:
+        return None, model, mesh is not None and grad_compression == "bf16"
+    group = mesh.group("data")
+    return group, wrap_ddp(model, group, grad_compression), False
+
+
+def _global(group, *values: Tensor) -> list:
+    """Detached sums over the data group (the values themselves without one)."""
+    if group is None:
+        return [v.detach() for v in values]
+    return psum(values, group)
+
+
+def _round_bf16(optimizer: Optimizer) -> None:
+    with torch.no_grad():
+        for p in optimizer.params:
+            if p.grad is not None:
+                p.grad.copy_(p.grad.to(torch.bfloat16))
+
+
+def make_ce_train_step(model: NnetAM, feat_fn: FeaturePipeline, optimizer: Optimizer,
+                       mesh: Optional[Mesh] = None, grad_compression: str = "none"
+                       ) -> Callable:
     """Build step(batch, generator) → metrics dict(loss, frame_acc, frames) of
     device scalars; the model's parameters and the optimizer state update in
-    place."""
+    place. With ``mesh``, ``batch`` is this rank's shard and the metrics are
+    global (module docstring)."""
+    group, fwd, round_local = _data_parallel(model, mesh, grad_compression)
 
     def step(batch: dict, generator: Optional[torch.Generator] = None) -> dict:
         optimizer.zero_grad()
-        sum_nll, count, correct = ce_forward(model, feat_fn, batch, generator, True)
-        denom = torch.clamp(count, min=1.0)
+        sum_nll, count, correct = ce_forward(fwd, feat_fn, batch, generator, True)
+        gcount, gnll, gcorrect = _global(group, count, sum_nll, correct)
+        denom = torch.clamp(gcount, min=1.0)
         (sum_nll / denom).backward()
+        if round_local:
+            _round_bf16(optimizer)
         optimizer.step()
         with torch.no_grad():
-            return {"loss": sum_nll.detach() / denom, "frame_acc": correct / denom,
-                    "frames": count}
+            return {"loss": gnll / denom, "frame_acc": gcorrect / denom, "frames": gcount}
 
     return step
 
@@ -82,27 +134,34 @@ def _se_setup(model: NnetAM, criterion: str, log_prior, pdf_to_phone, silence):
 
 
 def _se_update(optimizer: Optimizer, logits: Tensor, obj_rows: Tensor, labels: Tensor,
-               sup: Tensor, nf: Tensor, ce_ratio: float) -> dict:
+               sup: Tensor, nf: Tensor, ce_ratio: float, group=None,
+               round_local: bool = False) -> dict:
     """The SE step's tail: −objective per supervised frame (+ ce_ratio × CE,
-    f-smoothing), backward, optimizer step; → metrics dict(objective,
-    frame_acc, frames, ce) of device scalars."""
+    f-smoothing) over the global count, backward, optimizer step; →
+    metrics dict(objective, frame_acc, frames, ce) of device scalars, summed
+    over ``group``."""
     # zero-length padded rows would contribute num − logZ(dead) ≈ +1e30
     obj = torch.sum(torch.where(nf > 0, obj_rows, torch.zeros_like(obj_rows)))
     count = torch.sum(sup)
-    denom = torch.clamp(count, min=1.0)
-    loss = -obj / denom
     sum_nll = torch.zeros((), device=logits.device)
     if ce_ratio > 0.0:
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
         sum_nll = -torch.sum(ll * sup)
-        loss = loss + ce_ratio * sum_nll / denom
-    loss.backward()
-    optimizer.step()
     with torch.no_grad():
         correct = torch.sum((torch.argmax(logits, -1) == labels) * sup)
-        return {"objective": obj.detach() / denom, "frame_acc": correct / denom,
-                "frames": count, "ce": sum_nll.detach() / denom}
+    gcount, gobj, gcorrect, gnll = _global(group, count, obj, correct, sum_nll)
+    denom = torch.clamp(gcount, min=1.0)
+    loss = -obj / denom
+    if ce_ratio > 0.0:
+        loss = loss + ce_ratio * sum_nll / denom
+    loss.backward()
+    if round_local:
+        _round_bf16(optimizer)
+    optimizer.step()
+    with torch.no_grad():
+        return {"objective": gobj / denom, "frame_acc": gcorrect / denom,
+                "frames": gcount, "ce": gnll / denom}
 
 
 def make_se_train_step(
@@ -118,10 +177,12 @@ def make_se_train_step(
     ce_ratio: float = 0.0,
     pdf_to_phone=None,
     silence=None,
+    mesh: Optional[Mesh] = None,
+    grad_compression: str = "none",
 ) -> Callable:
     """Sequence-discriminative train step over a fixed denominator graph
-    (reference train_se hot loop). Port of pykaldi2_tpu/trainer.py:129-245 on
-    one device.
+    (reference train_se hot loop). Port of pykaldi2_tpu/trainer.py:129-245;
+    ``mesh`` and ``grad_compression`` as in the module docstring.
 
     step(batch, generator) → metrics dict(objective, frame_acc, frames, ce)
     of device scalars; parameters and optimizer state update in place.
@@ -136,6 +197,7 @@ def make_se_train_step(
 
     crit, dev, lp, p2p, sil = _se_setup(model, criterion, log_prior, pdf_to_phone, silence)
     den = den_graph.to(dev)
+    group, fwd, round_local = _data_parallel(model, mesh, grad_compression)
 
     def step(batch: dict, generator: Optional[torch.Generator] = None) -> dict:
         optimizer.zero_grad()
@@ -143,7 +205,7 @@ def make_se_train_step(
         nf = batch["num_frames"]
         labels = batch["labels"].long()
         feats = feat_fn(batch, generator=generator)
-        logits = model(feats, mask, train=True, generator=generator)
+        logits = fwd(feats, mask, train=True, generator=generator)
         obs = acoustic_scores(logits, lp, acoustic_scale)
         sup = mask * (labels >= 0)
         if crit == "mmi":
@@ -154,7 +216,8 @@ def make_se_train_step(
                 ref, level = p2p[torch.clamp(labels, min=0)], "phone"
             obj_rows = graph_expected_accuracy(obs, den, torch.clamp(ref, min=0), nf, level,
                                                sil)
-        return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio)
+        return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio, group,
+                          round_local)
 
     return step
 
@@ -172,10 +235,14 @@ def make_se_lattice_steps(
     pdf_to_phone=None,
     silence=None,
     obs_transfer_dtype: str = "bfloat16",
+    mesh: Optional[Mesh] = None,
+    grad_compression: str = "none",
 ) -> Tuple[Callable, Callable]:
     """On-the-fly denominator-lattice training (the reference's signature
     mode): returns (forward_fn, train_fn). Port of pykaldi2_tpu/trainer.py:
-    248-377 on one device.
+    248-377; ``mesh`` and ``grad_compression`` as in the module docstring
+    (each rank trains on its own rows and its own lattices, whatever their T,
+    K and A).
 
     forward_fn(batch) → scaled obs [B, T, P] in ``obs_transfer_dtype`` (the
     host decodes lattices from it): the eval pipeline (no dither, no
@@ -198,6 +265,7 @@ def make_se_lattice_steps(
     crit, _dev, lp, p2p, sil = _se_setup(model, criterion, log_prior, pdf_to_phone, silence)
     out_dtype = getattr(torch, obs_transfer_dtype)
     eval_feat_fn = feat_fn.for_eval()
+    group, fwd, round_local = _data_parallel(model, mesh, grad_compression)
 
     @torch.no_grad()
     def forward_fn(batch: dict) -> Tensor:
@@ -210,7 +278,7 @@ def make_se_lattice_steps(
         nf = batch["num_frames"]
         labels = batch["labels"].long()
         feats = feat_fn(batch, generator=generator)
-        logits = model(feats, mask, train=True, generator=generator)
+        logits = fwd(feats, mask, train=True, generator=generator)
         obs = acoustic_scores(logits, lp, acoustic_scale)
         sup = mask * (labels >= 0)
         if crit == "mmi":
@@ -222,18 +290,23 @@ def make_se_lattice_steps(
                 ref, level = p2p[torch.clamp(labels, min=0)], "phone"
             obj_rows = lattice_expected_accuracy_ts(obs, lattice, torch.clamp(ref, min=0),
                                                     nf, level, p2p, sil)
-        return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio)
+        return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio, group,
+                          round_local)
 
     return forward_fn, train_fn
 
 
-def make_eval_step(model: NnetAM, feat_fn: FeaturePipeline) -> Callable:
-    """step(batch) → (sum_nll, frames, correct) — for dev-loss tracking."""
+def make_eval_step(model: NnetAM, feat_fn: FeaturePipeline,
+                   mesh: Optional[Mesh] = None) -> Callable:
+    """step(batch) → (sum_nll, frames, correct) — for dev-loss tracking;
+    sums over the mesh's ``data`` group (the module itself runs the forward)."""
     eval_fn = feat_fn.for_eval()  # deterministic: no dither at eval
+    group = mesh.group("data") if mesh is not None and mesh.distributed else None
 
     @torch.no_grad()
     def step(batch: dict):
-        return ce_forward(model, eval_fn, batch, None, False)
+        out = ce_forward(model, eval_fn, batch, None, False)
+        return out if group is None else tuple(psum(out, group))
 
     return step
 

@@ -5,6 +5,7 @@ options that wait for later slices raise. A BLSTMP model on MFCC features
 tracks the JAX trainer step by step from the same seed checkpoint.
 """
 
+import contextlib
 import json
 import os
 
@@ -16,6 +17,7 @@ import yaml
 from pykaldi2_tpu_torch.bin.train_ce import main
 
 from toydata import make_toy_corpus
+from torch_dist_worker import one_rank_group
 from torch_port_helpers import pallas_interpret  # noqa: F401
 
 
@@ -95,16 +97,43 @@ def test_train_ce_cli_seed_model(cli_files):
     assert os.path.exists(os.path.join(exp2, "model.0.npz"))
 
 
-@pytest.mark.parametrize("over,argv,err", [
+@pytest.mark.parametrize("over,argv,logged", [
     ({}, ["-multihost"], "DDP"),
-    ({"trainer": {"mesh_shape": {"data": 2}}}, [], "DDP"),
+    ({"trainer": {"mesh_shape": {"data": -1}}}, [], "DDP"),
     ({"optimizer": {"grad_compression": "bf16"}}, [], "DDP"),
 ])
-def test_train_ce_cli_unported_options_raise(cli_files, over, argv, err):
+def test_train_ce_cli_unported_options_raise(cli_files, over, argv, logged):
+    """-multihost, trainer.mesh_shape and grad_compression raised until the
+    data-parallel slice was ported; now each trains, and train.log names the
+    process layout (it mentions ``logged``). -multihost joins a one-rank gloo
+    group that the test starts, as a launcher may: the parameters equal those
+    of the run without it, bit for bit. A mesh larger than the world raises
+    ValueError, as the reference's make_mesh does."""
     tmp, write = cli_files
     cp, dp = write(cfg_over=over)
-    with pytest.raises(NotImplementedError, match=err):
-        main(["-config", cp, "-data", dp, "-exp_dir", str(tmp / "x"), *argv])
+    cp1, dp1 = str(tmp / "one.yaml"), dp
+    with open(cp) as f:
+        one = yaml.safe_load(f)
+    one["trainer"]["num_epochs"] = 1
+    with open(cp1, "w") as f:
+        yaml.safe_dump(one, f)
+    exp = str(tmp / "x")
+    with one_rank_group(tmp) if argv else contextlib.nullcontext():
+        assert main(["-config", cp1, "-data", dp1, "-exp_dir", exp, *argv]) == 0
+    with open(os.path.join(exp, "train.log")) as f:
+        assert logged in f.read()
+    if argv:
+        ref = str(tmp / "ref")
+        assert main(["-config", cp1, "-data", dp1, "-exp_dir", ref]) == 0
+        with np.load(os.path.join(exp, "model.0.npz")) as a, \
+                np.load(os.path.join(ref, "model.0.npz")) as b:
+            for k in b.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    one["trainer"]["mesh_shape"] = {"data": 2}
+    with open(cp1, "w") as f:
+        yaml.safe_dump(one, f)
+    with pytest.raises(ValueError, match="mesh shape"):
+        main(["-config", cp1, "-data", dp1, "-exp_dir", str(tmp / "y")])
 
 
 @pytest.mark.parametrize("model", [

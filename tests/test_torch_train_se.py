@@ -49,6 +49,7 @@ from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
 from pykaldi2_tpu_torch.utils import make_optimizer, save_checkpoint
 
 from toydata import make_toy_corpus
+from torch_dist_worker import one_rank_group
 from torch_port_helpers import pallas_interpret, torch_batch  # noqa: F401
 
 NUM_PDFS, HIDDEN, BATCH, T_MAX = 5, 32, 3, 80
@@ -246,15 +247,22 @@ def test_train_se_device_decoder_trains(tmp_path, monkeypatch):
     assert all(r["lat_a"] <= 64 for r in steps)
 
 
-@pytest.mark.parametrize("argv,err", [
+@pytest.mark.parametrize("argv,logged", [
     (["-multihost"], "DDP"),
     (["-on_the_fly", "-multihost"], "DDP"),
 ])
-def test_train_se_unported_modes_raise(tmp_path, monkeypatch, argv, err):
+def test_train_se_unported_modes_raise(tmp_path, monkeypatch, argv, logged):
+    """-multihost raised until the data-parallel slice was ported; now both
+    modes train in a one-rank gloo group that the test starts, as a launcher
+    may, and train.log names the layout (it mentions ``logged``)."""
     monkeypatch.setenv("PK2_PLATFORM", "cpu")
-    cfg_path, _ = _cli_config(tmp_path)
-    with pytest.raises(NotImplementedError, match=err):
-        main(["-config", cfg_path, "-exp_dir", str(tmp_path / "x"), *argv])
+    cfg_path, _ = _cli_config(tmp_path, num_epochs=1)
+    exp = str(tmp_path / "x")
+    with one_rank_group(tmp_path):
+        assert main(["-config", cfg_path, "-exp_dir", exp, *argv]) == 0
+    assert os.path.exists(os.path.join(exp, "model.0.npz"))
+    with open(os.path.join(exp, "train.log")) as f:
+        assert logged in f.read()
 
 
 def test_train_se_needs_cuda_unless_cpu_requested(tmp_path, monkeypatch):
