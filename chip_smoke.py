@@ -141,7 +141,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      stream was capturing: none inside the search's capture, K7/K8
      launched, the parameters equal to phase 14(b)'s MMI run's; (e) the
      flagship step queued with DDP against the same step without a process
-     group (in turns, one process), and the fenced wall of (b)'s step.
+     group (in turns, one process), and the fenced wall of (b)'s step;
+ 16. the generic per-utterance lattice route (ops/fb_batched.py): phase 9's
+     first sMBR batch decoded again by phase 9's decoders into (DenseFsa,
+     frames) pairs, packed by ``pack_graph_batch`` and ``pack_time_sync``;
+     (a) the buckets and the saved history's bytes against the card's free
+     memory; (b) logZ, occupancies and the expected accuracy with its
+     gradient (pdf and phone level) against K7-K10 on the same lattices,
+     within LAT_TOL, and one frame's scatter passes timed; (c) the generic
+     route on the card against the CPU for the two shortest rows; (d)
+     ``make_se_lattice_steps``' train_fn on the BatchedGraphs, 3 MMI and 3
+     sMBR steps from phase 3's checkpoint: the first step's objective and
+     gradients against the same step on the TimeSyncLattice, K1-K3
+     launched and K7-K10 not, fenced step, peak memory, busy share and
+     device operations a frame.
 
 Output: per-kernel and per-step lines, the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": {...}}``.
@@ -250,6 +263,13 @@ OPS_FRAMES = 16
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def timed(fn, n: int = 20, warmup: int = 2) -> float:
@@ -1638,10 +1658,11 @@ def _self_device_us(event) -> float:
 
 
 def se_path(dev, root: str, ce_ckpt: str):
-    """Phase 7: ``bin/train_se.main -on_the_fly -decoder host`` at full width,
+    """Phase 9: ``bin/train_se.main -on_the_fly -decoder host`` at full width,
     3 steps under MMI and 3 under sMBR. Returns ({banded kernel: launches in
     the run that drives it}, {criterion: the run's first decoded batch as
-    (TimeSyncLattice, obs, num_frames)}, se.yaml, data.yaml)."""
+    (TimeSyncLattice, obs, num_frames), "decoders": the MMI run's host
+    decoders}, se.yaml, data.yaml)."""
     import yaml
 
     from pykaldi2_tpu_torch.bin import train_se
@@ -1673,6 +1694,7 @@ def se_path(dev, root: str, ce_ckpt: str):
     def capture(decoders, pool, obs, nf):  # keeps each run's first decoded batch
         out = decode(decoders, pool, obs, nf)
         first.setdefault(current["crit"], (out[0], obs, nf))
+        first.setdefault("decoders", decoders)
         return out
 
     launches = {}
@@ -1711,29 +1733,26 @@ def se_path(dev, root: str, ce_ckpt: str):
     return launches, first, cfg_yaml, data_yaml
 
 
-def se_step_checks(dev, first: dict, cfg_yaml: str, data_yaml: str, ckpt: str) -> dict:
-    """Phase 7, after the runs: K7-K10 against their plain versions on the
-    sMBR run's first decoded batch (the main path's shapes, timed), then one
-    SE train step per criterion on that batch and lattice, fenced and
-    profiled. Returns the kernel rows."""
+def se_reference(dev, shape):
+    """Random reference pdfs [B, T] below the SE model's 123 for the lattice
+    accuracy checks (phases 9 and 16)."""
+    import torch
+
+    return torch.randint(0, SE_PHONES * 3, tuple(shape), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+
+
+def se_first_batch(dev, cfg_yaml: str, data_yaml: str, nf_np):
+    """Phase 9's first SE batch on the card, as its runs' loader gives it:
+    (config, feature pipeline, batch, log prior); fails unless its lengths
+    are ``nf_np``, those of the batch whose lattices were captured."""
     import numpy as np
     import torch
 
     from pykaldi2_tpu_torch.config import load_config, load_data_config
     from pykaldi2_tpu_torch.data.dataloader import BucketSpec, SeqDataloader
-    from pykaldi2_tpu_torch.models import build_model
     from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
     from pykaldi2_tpu_torch.pipeline import build_frontend
-    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
-    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
-
-    lat, obs_np, nf_np = first["smbr"]
-    lat = lat.to(dev)
-    nf = torch.from_numpy(nf_np).to(dev)
-    ref = torch.randint(0, SE_PHONES * 3, tuple(obs_np.shape[:2]), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(3))
-    rows = {}
-    latfb_compare(dev, "decoded", torch.from_numpy(obs_np).to(dev), lat, nf, ref, rows)
 
     cfg = load_config(cfg_yaml)
     cfg.data = load_data_config(data_yaml)
@@ -1747,6 +1766,28 @@ def se_step_checks(dev, first: dict, cfg_yaml: str, data_yaml: str, ckpt: str) -
         fail("the loader's first SE batch is not the one the captured lattice was decoded for")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items() if k != "utt_ids"}
     log_prior = priors_from_counts(count_labels(dataset.labels.values(), cfg.model.output_size))
+    return cfg, feat_fn, batch, log_prior
+
+
+def se_step_checks(dev, first: dict, cfg_yaml: str, data_yaml: str, ckpt: str) -> dict:
+    """Phase 9, after the runs: K7-K10 against their plain versions on the
+    sMBR run's first decoded batch (the main path's shapes, timed), then one
+    SE train step per criterion on that batch and lattice, fenced and
+    profiled. Returns the kernel rows."""
+    import torch
+
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
+
+    lat, obs_np, nf_np = first["smbr"]
+    lat = lat.to(dev)
+    nf = torch.from_numpy(nf_np).to(dev)
+    ref = se_reference(dev, obs_np.shape[:2])
+    rows = {}
+    latfb_compare(dev, "decoded", torch.from_numpy(obs_np).to(dev), lat, nf, ref, rows)
+
+    cfg, feat_fn, batch, log_prior = se_first_batch(dev, cfg_yaml, data_yaml, nf_np)
     gen = torch.Generator(device=dev).manual_seed(2)
     for crit in ("mmi", "smbr"):
         model = build_model(cfg.model).to(dev)
@@ -1941,9 +1982,7 @@ def fixed_den_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> 
     from pykaldi2_tpu_torch.ops.fsa import save_fsa
     from pykaldi2_tpu_torch.ops.se_losses import count_labels, priors_from_counts
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_name_and_limit()
     row, g = blockfb_checks(dev)
 
     # compute_priors on the phase's alignments
@@ -3639,9 +3678,7 @@ def parallel_phase(dev, root: str, exp: str, cfg_yaml: str, data_yaml: str, se_c
              P15_TOL["same"])
     t_d = time.perf_counter()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_name_and_limit()
     t = a["times"]
     print(f"phase 15(e) [{smi}]: flagship CE step queued (50 steps, B={B}x{T}) without a "
           f"process group {t['plain'][0]:.3f}, {t['plain'][1]:.3f} ms; with DDP over one "
@@ -3651,6 +3688,279 @@ def parallel_phase(dev, root: str, exp: str, cfg_yaml: str, data_yaml: str, se_c
           f"{', '.join(f'{w:.1f}' for w in two[1]['walls_ms'])} ms", flush=True)
     print(f"phase 15 ((a) {t_a - t_phase:.1f} s, (b)/(c) {t_b - t_a:.1f} s, (d) "
           f"{t_d - t_b:.1f} s): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the generic per-utterance lattice route (ops/fb_batched.py) at
+# phase 9's full width, held to the banded kernels K7-K10 on the same decoded
+# lattices, to the CPU, and trained through make_se_lattice_steps
+# ---------------------------------------------------------------------------
+
+# 16(b)/(c): LAT_TOL's bounds (the two routes and the two devices sum the same
+# fp32 terms in other orders): log Z within 1e-4·max(1, |x|); gamma within
+# 1e-5 + 1e-4·|gamma|; the expected accuracy f and its gradient within
+# 1e-5·max(1, |f|) + 1e-4·|x| (f and the arcs' c are frame counts up to T).
+# 16(d): the first step's per-frame objective within 1e-4·max(1, |objective|)
+# of the banded step's; each parameter's gradient within 1e-2 of the banded
+# gradient's largest element: the obs gradients agree to ~1e-4, and a bf16
+# rounding that flips in K3's operands moves one element by 2^-8 of it. (The
+# updates themselves are not compared: at lr 1e-5 an update is a few fp32
+# ulps of its parameter, so one ulp is half of it.)
+GENERIC_GRAD_TOL = 1e-2
+
+
+def decode_pairs(decoders, obs_np, nf_np) -> list:
+    """(DenseFsa, state frames) per utterance from phase 9's host decoders,
+    one thread each, as bin/train_se.py's ``decode_batch`` decodes them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(decoders)
+    pairs = [None] * obs_np.shape[0]
+
+    def shard(k):
+        for i in range(k, len(pairs), n):
+            fsa, frames, _score = decoders[k].decode_lattice(obs_np[i, : nf_np[i]],
+                                                             with_frames=True)
+            pairs[i] = (fsa, frames)
+
+    with ThreadPoolExecutor(n) as pool:
+        list(pool.map(shard, range(n)))
+    return pairs
+
+
+def fenced(fn):
+    """(fn's result, its wall ms, synchronised on both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def value_and_grad(fn, obs, *args) -> tuple:
+    """(fn(obs, *args) [B], d sum / d obs)."""
+    o = obs.detach().clone().requires_grad_(True)
+    f = fn(o, *args)
+    f.sum().backward()
+    return f.detach(), o.grad
+
+
+def close_acc(what: str, got, want, f) -> float:
+    """An expected accuracy or its gradient within 1e-5·max(1, |f|) +
+    1e-4·|want|, f [B] the rows' expected accuracies."""
+    import torch
+
+    atol = LAT_TOL["abs"] * torch.clamp(f.abs(), min=1.0)
+    return close(what, got, want, atol.reshape(-1, *([1] * (want.dim() - 1))), LAT_TOL["rel"])
+
+
+def generic_vs_banded(obs, bg, lat, nf, ref, p2p, smi: str) -> dict:
+    """16(b): the generic route against K7-K10 on the same lattices; returns
+    the generic route's outputs for (c)."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_batched as GB
+    from pykaldi2_tpu_torch.ops import fb_lattice as FL
+
+    t = obs.shape[1]
+    (gz, ggam), g_ms = fenced(lambda: GB.fsa_occupancies_b(obs, bg, nf))
+    (bz, bgam), b_ms = fenced(lambda: FL.lattice_occupancies_ts(obs, lat, nf))
+    close("16(b) generic log Z vs K7", gz, bz, LAT_TOL["log"], LAT_TOL["log"])
+    close("16(b) generic gamma vs K7/K8", ggam, bgam, LAT_TOL["abs"], LAT_TOL["rel"])
+    print(f"16(b) [{smi}] fsa_occupancies_b {g_ms:.1f} ms ({g_ms / t:.3f} ms a frame) | "
+          f"K7+K8 lattice_occupancies_ts {b_ms:.1f} ms", flush=True)
+    out = {"logz": gz, "gamma": ggam}
+    for level in ("pdf", "phone"):
+        r = ref if level == "pdf" else p2p[ref]
+        (gf, gg), ga_ms = fenced(lambda: value_and_grad(GB.batched_expected_accuracy, obs, bg,
+                                                        r, nf, level, p2p))
+        (bf, bgr), ba_ms = fenced(lambda: value_and_grad(FL.lattice_expected_accuracy_ts, obs,
+                                                         lat, r, nf, level, p2p))
+        close_acc(f"16(b) generic expected accuracy vs K9 ({level})", gf, bf, bf)
+        close_acc(f"16(b) generic accuracy gradient vs K9/K10 ({level})", gg, bgr, bf)
+        print(f"16(b) [{smi}] batched_expected_accuracy ({level}) value and gradient "
+              f"{ga_ms:.1f} ms ({ga_ms / t:.3f} ms a frame) | K9+K10 {ba_ms:.1f} ms", flush=True)
+        if level == "pdf":
+            out.update(f=gf, grad=gg)
+    return out
+
+
+def generic_scatter_probe(bg, p_dim: int, smi: str) -> None:
+    """16(b), P10: one frame's three ``scatter_add_`` passes of the generic
+    route (arcs into their destination states, their source states, their
+    pdfs) timed by CUDA events, as packed and with the padding arcs' ids
+    (all one dead state, or pdf 0) spread over distinct ids: what the
+    atomics on one address cost."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+    from pykaldi2_tpu_torch.ops.fb_batched import _seg_sum_b
+
+    vals = torch.rand(bg.weight.shape, device=bg.weight.device)
+    pad = bg.weight <= 0.5 * NEG_INF
+    spread = torch.arange(pad.shape[1], device=pad.device).expand_as(pad)
+    parts = []
+    for name, ids, n in (("dst", bg.dst, bg.num_states), ("src", bg.src, bg.num_states),
+                         ("pdf", bg.pdf, p_dim)):
+        other = torch.where(pad, spread % n, ids)
+        packed = timed(lambda: _seg_sum_b(vals, ids, n), n=10)
+        parts.append(f"{name} {packed:.3f} ms ({timed(lambda: _seg_sum_b(vals, other, n), n=10):.3f} "
+                     f"spread)")
+    print(f"16(b) [{smi}] scatter_add_ of [B, E] = {list(pad.shape)} ({float(pad.float().mean()):.1%} "
+          f"padding arcs) a call: {', '.join(parts)}", flush=True)
+
+
+def generic_card_vs_cpu(pairs, obs, nf, ref, card: dict) -> None:
+    """16(c): the generic route on the CPU for the two shortest rows (packed
+    alone, cut to their frames: padding is inert) against the card's rows."""
+    import torch
+
+    from pykaldi2_tpu_torch.ops import fb_batched as GB
+
+    rows = torch.argsort(nf)[:2]
+    t2 = int(nf[rows].max())
+    cpu_bg = GB.pack_graph_batch([pairs[i][0] for i in rows.tolist()])
+    o, n, r = obs[rows, :t2].cpu(), nf[rows].cpu(), ref[rows, :t2].cpu()
+    t0 = time.perf_counter()
+    cz, cgam = GB.fsa_occupancies_b(o, cpu_bg, n)
+    cf, cg = value_and_grad(GB.batched_expected_accuracy, o, cpu_bg, r, n, "pdf", None)
+    cpu_s = time.perf_counter() - t0
+    what = f"rows {rows.tolist()}, {t2} frames, E={cpu_bg.src.shape[1]}"
+    close(f"16(c) generic log Z card vs CPU ({what})", card["logz"][rows].cpu(), cz,
+          LAT_TOL["log"], LAT_TOL["log"])
+    close("16(c) generic gamma card vs CPU", card["gamma"][rows, :t2].cpu(), cgam,
+          LAT_TOL["abs"], LAT_TOL["rel"])
+    close_acc("16(c) generic expected accuracy card vs CPU", card["f"][rows].cpu(), cf, cf)
+    close_acc("16(c) generic accuracy gradient card vs CPU", card["grad"][rows, :t2].cpu(), cg,
+              cf)
+    if card["gamma"][rows, t2:].abs().max() > 0 or card["grad"][rows, t2:].abs().max() > 0:
+        fail("16(c): the generic route wrote occupancies or gradients past the rows' frames")
+    print(f"16(c) the CPU's generic route on {what}: {cpu_s:.1f} s", flush=True)
+
+
+def generic_train_steps(dev, cfg, feat_fn, batch, log_prior, ckpt: str, bg, lat,
+                        smi: str) -> None:
+    """16(d): ``make_se_lattice_steps``' train_fn on the BatchedGraphs, 3 steps
+    per criterion from phase 9's start: the first against the same step on
+    the TimeSyncLattice, K1-K3 launched and K7-K10 not."""
+    import torch
+
+    from pykaldi2_tpu_torch.models import build_model
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+    from pykaldi2_tpu_torch.utils import load_checkpoint, make_optimizer
+
+    banded = tuple(LATFB)
+    t = batch["labels"].shape[1]
+    for crit in ("mmi", "smbr"):
+        def steps():
+            model = build_model(cfg.model).to(dev)
+            load_checkpoint(ckpt, model)
+            _fwd, train = make_se_lattice_steps(
+                model, feat_fn, make_optimizer(cfg.optimizer, model.parameters()),
+                log_prior=log_prior, acoustic_scale=cfg.trainer.acoustic_scale,
+                ce_ratio=cfg.trainer.ce_ratio, criterion=crit)
+            return model, train, torch.Generator(device=dev).manual_seed(2)
+
+        def grads(model):
+            return {k: v.grad.detach().clone() for k, v in model.named_parameters()}
+
+        model, train, gen = steps()
+        want = float(train(batch, lat, gen)["objective"])
+        want_g = grads(model)
+        model, train, gen = steps()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        m, ms1 = fenced(lambda: train(batch, bg, gen))
+        obj = [float(m["objective"])]
+        got_g = grads(model)
+        m, ms2 = fenced(lambda: train(batch, bg, gen))
+        obj.append(float(m["objective"]))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        busy, ops = profile_steps(lambda: train(batch, bg, gen), 1,
+                                  f"16(d) generic {crit} step profile ({smi})", top=10)
+        launches = read_counts()
+        print(f"16(d) generic {crit} path launches: {json.dumps(launches)}", flush=True)
+        need_launches(f"generic {crit} step", launches, positive=("fbank", "lstm_fwd", "lstm_bwd"),
+                      zero=banded)
+        if not all(math.isfinite(x) for x in obj):
+            fail(f"16(d) generic {crit} steps reached objectives {obj}")
+        if abs(obj[0] - want) > LAT_TOL["log"] * max(1.0, abs(want)):
+            fail(f"16(d) generic {crit} first step objective {obj[0]} vs banded {want}")
+        worst = max(float((got_g[k] - want_g[k]).abs().max() / want_g[k].abs().max())
+                    for k in want_g)
+        if not worst <= GENERIC_GRAD_TOL:
+            fail(f"16(d) generic {crit} first gradient vs banded: {worst} of the largest element")
+        print(f"16(d) [{smi}] generic {crit} train step (B={SE_B}, T={t}, S={bg.num_states}, "
+              f"E={bg.src.shape[1]}): fenced {ms1:.1f}, {ms2:.1f} ms; objectives "
+              f"{', '.join(f'{x:.6f}' for x in obj)} (banded first step {want:.6f}); first "
+              f"gradient within {worst:.2e} of the banded one's largest element (bound "
+              f"{GENERIC_GRAD_TOL:g}); peak {peak:.2f} GiB; busy {100 * busy:.1f}%, "
+              f"{ops:.0f} device operations a step, {ops / t:.1f} a frame", flush=True)
+
+
+def generic_lattice_phase(dev, root: str, first: dict, se_cfg: str, se_data: str,
+                          ce_ckpt: str) -> None:
+    """Phase 16: phase 9's first sMBR batch decoded again by phase 9's host
+    decoders into (DenseFsa, frames) pairs and packed both ways; (a) the
+    buckets and the saved history's bytes against the card's free memory;
+    (b) the generic route against K7-K10; (c) card against CPU; (d) the
+    train step on BatchedGraphs."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.graph import TransitionModel
+    from pykaldi2_tpu_torch.ops.fb_batched import pack_graph_batch
+    from pykaldi2_tpu_torch.ops.fb_lattice import pack_time_sync
+
+    t_phase = time.perf_counter()
+    smi = card_name_and_limit()
+    _lat, obs_np, nf_np = first["smbr"]
+    pairs = decode_pairs(first["decoders"], obs_np, nf_np)
+    t_dec = time.perf_counter()
+    bg = pack_graph_batch([f for f, _ in pairs])
+    t_pack = time.perf_counter()
+    lat = pack_time_sync(pairs, t_pad=obs_np.shape[1])
+    same = all(torch.equal(a, b) for a, b in zip(lat, _lat))
+    b, t = obs_np.shape[:2]
+    s, e = bg.num_states, bg.src.shape[1]
+    states = [f.num_states for f, _ in pairs]
+    arcs = [f.num_arcs for f, _ in pairs]
+    hist = {"mmi": t * b * s * 4, "smbr": 2 * t * b * s * 4}
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    print(f"16(a) {b} lattices decoded on {len(first['decoders'])} threads in "
+          f"{t_dec - t_phase:.1f} s: states {min(states)}-{max(states)} (mean "
+          f"{np.mean(states):.0f}), arcs {min(arcs)}-{max(arcs)} (mean {np.mean(arcs):.0f}); "
+          f"pack_graph_batch S={s} E={e} in {1e3 * (t_pack - t_dec):.1f} ms; pack_time_sync "
+          f"K={lat.num_slots} A={lat.src.shape[2]}, {'equal to' if same else 'unlike'} phase "
+          f"9's band; saved history T*B*S*4 = {hist['mmi'] / 2**30:.2f} GiB (MMI alphas), "
+          f"{hist['smbr'] / 2**30:.2f} GiB (sMBR alphas and accuracy alphas); free "
+          f"{free / 2**30:.2f} GiB", flush=True)
+    if hist["smbr"] >= free:
+        fail(f"16(a): the generic route's saved history ({hist['smbr']} bytes at B={b}, T={t}, "
+             f"S={s}) does not fit the card's {free} free bytes")
+    obs = torch.from_numpy(obs_np).to(dev)
+    nf = torch.from_numpy(nf_np).to(dev)
+    ref = se_reference(dev, (b, t))
+    tm = TransitionModel.read_kaldi(os.path.join(root, "se_corpus", "final.mdl"))
+    p2p = torch.zeros(tm.num_pdfs, dtype=torch.long)
+    for (phone, _j, pdf) in tm.tuples:
+        p2p[pdf] = phone
+    p2p = p2p.to(dev)
+    bg, lat = bg.to(dev), lat.to(dev)
+    card = generic_vs_banded(obs, bg, lat, nf, ref, p2p, smi)
+    generic_scatter_probe(bg, obs.shape[2], smi)
+    t_b = time.perf_counter()
+    generic_card_vs_cpu(pairs, obs, nf, ref, card)
+    del card
+    t_c = time.perf_counter()
+    cfg, feat_fn, batch, log_prior = se_first_batch(dev, se_cfg, se_data, nf_np)
+    generic_train_steps(dev, cfg, feat_fn, batch, log_prior, ce_ckpt, bg, lat, smi)
+    t_end = time.perf_counter()
+    print(f"phase 16 ((a) {t_dec - t_phase:.1f} s decode, (b) {t_b - t_dec:.1f} s, (c) "
+          f"{t_c - t_b:.1f} s, (d) {t_end - t_c:.1f} s): {t_end - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3719,10 +4029,9 @@ def main() -> int:
                         dec, data_yaml, base)
     parallel_phase(dev, root, exp, cfg_yaml, data_yaml, se_cfg, se_data,
                    os.path.join(exp, "model.0.npz"))
+    generic_lattice_phase(dev, root, first, se_cfg, se_data, os.path.join(exp, "model.0.npz"))
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_name_and_limit()
     print(smi, flush=True)
     # K7-K10: times and bounds at the decoded batch (the main path's shapes),
     # the error the largest of the probe's, the padded band's and the decoded

@@ -10,7 +10,9 @@ lattices + lattice-functions.cc machinery pykaldi2 reaches through Kaldi):
 
 Graphs are built host-side by pykaldi2_tpu_torch.graph; decoded lattices
 come from decode/decoder.py and are packed into frame bands by
-ops/fb_lattice.py for the forward-backward on the device.
+ops/fb_lattice.py, or padded to a common bucket by ops/fb_batched.py, for
+the forward-backward on the device. ``brute_force_logz`` and
+``brute_force_paths`` are exhaustive oracles for the tests.
 """
 
 from __future__ import annotations
@@ -119,3 +121,49 @@ def linear_chain_fsa(pdf_seq: np.ndarray, weight: float = 0.0) -> DenseFsa:
     final[t] = 0.0
     return DenseFsa(t + 1, src, dst, np.asarray(pdf_seq, np.int32),
                     np.full(t, weight, np.float32), final)
+
+
+def brute_force_logz(fsa: DenseFsa, obs: np.ndarray) -> float:
+    """O(S·E·T) dynamic program in plain numpy — test oracle only."""
+    t_len = obs.shape[0]
+    alpha = np.full(fsa.num_states, -np.inf)
+    alpha[fsa.start] = 0.0
+    for t in range(t_len):
+        nxt = np.full(fsa.num_states, -np.inf)
+        for e in range(fsa.num_arcs):
+            s, d, p, w = fsa.src[e], fsa.dst[e], fsa.pdf[e], fsa.weight[e]
+            score = alpha[s] + w + obs[t, p]
+            nxt[d] = np.logaddexp(nxt[d], score)
+        alpha = nxt
+    return float(np.max(np.where(np.isfinite(fsa.final), alpha + fsa.final, -np.inf))
+                 if not np.isfinite(alpha + fsa.final).any()
+                 else _lse(alpha + fsa.final))
+
+
+def _lse(x):
+    m = np.max(x)
+    if not np.isfinite(m):
+        return m
+    return m + np.log(np.sum(np.exp(x - m)))
+
+
+def brute_force_paths(fsa: DenseFsa, t_len: int):
+    """Enumerate all T-length accepting paths (tiny graphs only): (arcs, score_fn).
+
+    Yields (arc_index_list, graph_score) pairs; observation score added by caller.
+    """
+    out = []
+
+    def rec(state, t, arcs, w):
+        if t == t_len:
+            if np.isfinite(fsa.final[state]):
+                out.append((list(arcs), w + float(fsa.final[state])))
+            return
+        for e in range(fsa.num_arcs):
+            if fsa.src[e] == state and np.isfinite(fsa.weight[e]):
+                arcs.append(e)
+                rec(fsa.dst[e], t + 1, arcs, w + float(fsa.weight[e]))
+                arcs.pop()
+
+    rec(fsa.start, 0, [], 0.0)
+    return out

@@ -252,15 +252,25 @@ def make_se_lattice_steps(
 
     train_fn(batch, lattice, generator) → metrics dict(objective, frame_acc,
     frames, ce) of device scalars; applies the lattice update in place,
-    recomputing the forward with dither and dropout. ``lattice`` is a
-    TimeSyncLattice on the batch's device. criterion: mmi (num alignment −
-    lattice logZ) or smbr/mpfe (expected frame accuracy over the decoded
-    lattice, Kaldi LatticeForwardBackwardMpeVariants semantics); ce_ratio
-    adds the CE f-smoothing term.
+    recomputing the forward with dither and dropout. ``lattice`` is on the
+    batch's device and picks the route by its type, as the reference's does:
+    a TimeSyncLattice (banded decoded lattices, ops/fb_lattice.py: kernels
+    K7-K10 on the card; carries [T, B, K]) or a BatchedGraphs (generic
+    per-utterance arc tables, ops/fb_batched.py: plain torch ops; carries
+    [T, B, num_states]). criterion: mmi (num alignment − lattice logZ) or
+    smbr/mpfe (expected frame accuracy over the decoded lattice, Kaldi
+    LatticeForwardBackwardMpeVariants semantics); ce_ratio adds the CE
+    f-smoothing term.
     """
-    from pykaldi2_tpu_torch.ops.fb_lattice import (lattice_expected_accuracy_ts,
+    from pykaldi2_tpu_torch.ops.fb_batched import (BatchedGraphs, batched_expected_accuracy,
+                                                   mmi_objective_lattice)
+    from pykaldi2_tpu_torch.ops.fb_lattice import (TimeSyncLattice,
+                                                   lattice_expected_accuracy_ts,
                                                    mmi_objective_lattice_ts)
     from pykaldi2_tpu_torch.ops.se_losses import acoustic_scores
+
+    routes = {TimeSyncLattice: (mmi_objective_lattice_ts, lattice_expected_accuracy_ts),
+              BatchedGraphs: (mmi_objective_lattice, batched_expected_accuracy)}
 
     crit, _dev, lp, p2p, sil = _se_setup(model, criterion, log_prior, pdf_to_phone, silence)
     out_dtype = getattr(torch, obs_transfer_dtype)
@@ -273,6 +283,10 @@ def make_se_lattice_steps(
         return acoustic_scores(logits, lp, acoustic_scale).to(out_dtype)
 
     def train_fn(batch: dict, lattice, generator: Optional[torch.Generator] = None) -> dict:
+        if type(lattice) not in routes:
+            raise TypeError(f"lattice must be a TimeSyncLattice or a BatchedGraphs, not "
+                            f"{type(lattice).__name__}")
+        mmi_fn, acc_fn = routes[type(lattice)]
         optimizer.zero_grad()
         mask = batch["mask"].to(torch.float32)
         nf = batch["num_frames"]
@@ -282,14 +296,12 @@ def make_se_lattice_steps(
         obs = acoustic_scores(logits, lp, acoustic_scale)
         sup = mask * (labels >= 0)
         if crit == "mmi":
-            obj_rows = mmi_objective_lattice_ts(obs, labels, lattice, nf, sup,
-                                                drop_frames, den_scale)
+            obj_rows = mmi_fn(obs, labels, lattice, nf, sup, drop_frames, den_scale)
         else:
             ref, level = labels, "pdf"
             if crit == "mpfe":
                 ref, level = p2p[torch.clamp(labels, min=0)], "phone"
-            obj_rows = lattice_expected_accuracy_ts(obs, lattice, torch.clamp(ref, min=0),
-                                                    nf, level, p2p, sil)
+            obj_rows = acc_fn(obs, lattice, torch.clamp(ref, min=0), nf, level, p2p, sil)
         return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio, group,
                           round_local)
 

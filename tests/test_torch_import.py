@@ -37,7 +37,7 @@ for n in ("graph", "graph.compile", "graph.transition_model", "decode.decoder",
           "decode.lattice_ark", "decode.mbr", "graph.vfst", "graph.openfst_io", "bin.decode",
           "graph.arpa", "ops.fb", "bin.align", "bin.build_graph", "bin.lattice_tool",
           "bin.compare_posteriors", "models.tdnn", "models.transformer",
-          "decode.device_lattice", "decode.on_device"):
+          "decode.device_lattice", "decode.on_device", "ops.fb_batched"):
     assert "pykaldi2_tpu_torch." + n in names, n
 print(len(names))
 """

@@ -177,8 +177,30 @@ def case_cli(rank, world, workdir, spec):
     return {"sha": np.asarray(h.hexdigest())}
 
 
+def case_se_lattice(rank, world, workdir, spec):
+    """make_se_lattice_steps on per-utterance graphs (BatchedGraphs) over a
+    data mesh, once per criterion, each from the initial parameters; each
+    rank steps on its own rows and graphs, packed to its own bucket."""
+    from pykaldi2_tpu_torch.ops.fb_batched import BatchedGraphs
+    from pykaldi2_tpu_torch.parallel.mesh import make_mesh
+    from pykaldi2_tpu_torch.trainer import make_se_lattice_steps
+
+    mesh = make_mesh()
+    batch = _batch(workdir, rank)
+    graphs = BatchedGraphs(*(batch.pop(f"g_{k}") for k in BatchedGraphs._fields))
+    out = {"arcs": np.asarray(graphs.src.shape[1])}
+    for crit in spec["criteria"]:
+        feat, model = _setup(spec)
+        _fwd, train = make_se_lattice_steps(model, feat, _optimizer(spec, model),
+                                            criterion=crit, mesh=mesh,
+                                            **spec["se"])
+        out.update(_metrics(train(batch, graphs), f"{crit}/m/"))
+        out.update(_params(model, f"{crit}/p"))
+    return out
+
+
 CASES = {"ce": case_ce, "se": case_se, "tp2d": case_tp2d, "bmuf": case_bmuf,
-         "equalized": case_equalized, "cli": case_cli}
+         "equalized": case_equalized, "cli": case_cli, "se_lattice": case_se_lattice}
 
 
 # ---------------------------------------------------------------------------
