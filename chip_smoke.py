@@ -3048,11 +3048,13 @@ def search_compare(dev, what: str, obs, graph, nf, kw: dict, cpu_rows: int = 0) 
     import torch
 
     from pykaldi2_tpu_torch.decode import device_lattice as DL
+    from pykaldi2_tpu_torch.utils import tracing
 
     b, t = obs.shape[:2]
     search = DL.DeviceSearch(graph)
+    tracing.take()
     cap = search(obs, nf, **kw)
-    capture = search.last_capture
+    capture_s = tracing.take()["counters"].get("search.captures", (0, math.nan))[1]
     others = [(search(obs, nf, capture=False, **kw), "eager on the card", b)]
     if cpu_rows:
         others.append((DL.device_lattice_generate(obs[:cpu_rows].cpu(), graph.to("cpu"),
@@ -3086,7 +3088,7 @@ def search_compare(dev, what: str, obs, graph, nf, kw: dict, cpu_rows: int = 0) 
     live = (cap[0].weight > -5e29).sum(2)
     print(f"{what} search (B={b}, T={t}, {json.dumps(kw)}): captured {rep_ms:.2f} ms "
           f"({1e3 * rep_ms / t:.1f} us a frame, busy {100 * busy:.1f}%) vs eager {eager_ms:.2f} ms "
-          f"({1e3 * eager_ms / t:.1f} us a frame); capture {capture.get('s', math.nan):.2f} s "
+          f"({1e3 * eager_ms / t:.1f} us a frame); capture {capture_s:.2f} s "
           f"of host time, {ops / OPS_FRAMES:.1f} device operations a frame (graph nodes); "
           f"links a frame max {int(live.max())}, mean {float(live.float().mean()):.1f}; dropped "
           f"{int(cap[2].sum())}", flush=True)

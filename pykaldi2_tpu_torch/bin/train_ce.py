@@ -49,8 +49,7 @@ from pykaldi2_tpu_torch.utils import (
     setup_logging,
 )
 from pykaldi2_tpu_torch.utils.lr import set_lr_scale
-
-PROFILE_START, PROFILE_STEPS = 2, 20
+from pykaldi2_tpu_torch.utils.tracing import PROFILE_START, PROFILE_STEPS, StepProfiler
 
 
 def build_argparser():
@@ -79,17 +78,9 @@ def build_argparser():
                    help="one process on one device: no process group, no mesh (debug)")
     p.add_argument("-profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of steps "
-                        f"{PROFILE_START}..{PROFILE_START + PROFILE_STEPS} into DIR")
+                        f"{PROFILE_START}..{PROFILE_START + PROFILE_STEPS} into DIR, with "
+                        "the program's pk2/ spans (utils/tracing.py)")
     return p
-
-
-def _profiler(dev: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
 
 
 def main(argv=None, device: Optional[str] = None):
@@ -165,7 +156,7 @@ def _main(args, dev: torch.device):
     # dither and dropout draw from one device generator, seeded per run and
     # data rank (rank 0's seed is the single-process seed)
     gen = torch.Generator(device=dev).manual_seed(rank_seed(cfg.trainer.seed + 1, mesh))
-    profiler = None
+    profiler = StepProfiler(args.profile, dev, log)
     step_no = 0
     for epoch in range(start_epoch, cfg.trainer.num_epochs):
         sweep_world = max(int(round(1.0 / max(cfg.trainer.sweep_size, 1e-6))), 1)
@@ -185,14 +176,9 @@ def _main(args, dev: torch.device):
         synced_frames = 0.0
         # every step holds collectives: stop at the smallest rank's count
         for batch in device_prefetch(equalized_steps(loader, iter(loader)), dev):
-            if args.profile and step_no == PROFILE_START and profiler is None:
-                profiler = _profiler(dev)
-                profiler.__enter__()
+            profiler.step(step_no)
             m = train_step(batch, gen)
             step_no += 1
-            if profiler is not None and step_no == PROFILE_START + PROFILE_STEPS:
-                _close_profiler(profiler, args.profile, dev, log)
-                profiler = None
             # device-scalar accumulation: reading a value per step would make
             # the host wait for the device and drain the prefetch run-ahead
             ep_nll += m["loss"] * m["frames"]
@@ -210,9 +196,7 @@ def _main(args, dev: torch.device):
                          epoch, step_no, loss, acc, u_s, f_s)
                 metrics_log.log(epoch=epoch, step=step_no, loss=loss, frame_acc=acc,
                                 utt_per_sec=u_s, frames_per_sec=f_s)
-        if profiler is not None:
-            _close_profiler(profiler, args.profile, dev, log)
-            profiler = None
+        profiler.close()
         ep_loss = float(ep_nll) / max(float(ep_frames), 1.0)
         anneal_loss = ep_loss
         if eval_step is not None:
@@ -239,19 +223,6 @@ def _main(args, dev: torch.device):
         metrics_log.log(epoch=epoch, epoch_loss=ep_loss, lr_scale=scale)
     metrics_log.close()
     return 0
-
-
-def _close_profiler(profiler, trace_dir: str, dev: torch.device, log) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    profiler.__exit__(None, None, None)
-    os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, "trace.json")
-    profiler.export_chrome_trace(path)
-    sort = "device_time_total" if dev.type == "cuda" else "cpu_time_total"
-    log.info("profile (sorted by %s):\n%s", sort,
-             profiler.key_averages().table(sort_by=sort, row_limit=25))
-    log.info("profiler trace written to %s", path)
 
 
 if __name__ == "__main__":

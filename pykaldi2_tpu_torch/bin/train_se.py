@@ -41,6 +41,9 @@ ranks, and every loop stops at the smallest rank's batch count. Ranks step
 on their own T (and lattice K and A): no collective depends on a shape, so
 nothing is padded across ranks. The eval forward, the host decode and the
 device search run each rank's own rows outside DDP.
+
+``-profile DIR`` traces steps 2 to 22 of any of the three loops as
+bin/train_ce.py's does, with the program's spans (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ from pykaldi2_tpu_torch.utils import (
     setup_logging,
 )
 from pykaldi2_tpu_torch.utils.lr import set_lr_scale
+from pykaldi2_tpu_torch.utils.tracing import PROFILE_START, PROFILE_STEPS, StepProfiler
 
 
 def build_argparser():
@@ -146,6 +150,10 @@ def build_argparser():
                         "for mmi, as in Kaldi)")
     p.add_argument("-one_silence_class", action="store_true",
                    help="collapse all silence phones into one accuracy class")
+    p.add_argument("-profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of steps "
+                        f"{PROFILE_START}..{PROFILE_START + PROFILE_STEPS} into DIR, with "
+                        "the program's pk2/ spans (utils/tracing.py)")
     return p
 
 
@@ -369,6 +377,7 @@ def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, 
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
     gen = torch.Generator(device=dev).manual_seed(par.seed)
+    profiler = StepProfiler(args.profile, dev, log)
     step_no = 0
     try:
         for epoch in range(start_epoch, cfg.trainer.num_epochs):
@@ -381,9 +390,11 @@ def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, 
             synced_frames = 0.0
             for batch in device_prefetch(batches, dev):
                 utt_ids = batch.pop("utt_ids")
-                start = _mark(dev)
+                profiler.step(step_no)
+                logged = (step_no + 1) % cfg.trainer.log_interval == 0
+                start = _mark(dev, logged)
                 m = step(batch, gen)
-                end = _mark(dev)
+                end = _mark(dev, logged)
                 step_no += 1
                 ep_obj += m["objective"] * m["frames"]
                 ep_frames += m["frames"]
@@ -402,6 +413,7 @@ def _run_fixed(args, cfg, log, metrics_log, dataset, feat_fn, model, optimizer, 
                     metrics_log.log(epoch=epoch, step=step_no, objective=obj, frame_acc=acc,
                                     utt_per_sec=u_s, frames_per_sec=f_s, train_ms=train_ms,
                                     t_len=t_len)
+            profiler.close()
             _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch, crit,
                        ep_obj, ep_frames)
     finally:
@@ -423,8 +435,11 @@ def _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch: int, w
     metrics_log.log(epoch=epoch, epoch_objective=ep, lr_scale=scale)
 
 
-def _mark(dev: torch.device):
-    """A point in time on the device's stream (CUDA event) or the host clock."""
+def _mark(dev: torch.device, logged: bool):
+    """A point in time on the device's stream (CUDA event) or the host clock,
+    on a step that logs its times; None on the others."""
+    if not logged:
+        return None
     if dev.type == "cuda":
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
@@ -529,13 +544,18 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
     utt_pool = ThreadPoolExecutor(max_workers=n_threads)
     pipe_pool = ThreadPoolExecutor(max_workers=1)
     gen = torch.Generator(device=dev).manual_seed(par.seed)
+    profiler = StepProfiler(args.profile, dev, log)
+    submitted = 0  # batches forwarded; each is trained on in this order
 
     def submit(batch):
         """Forward on the main thread with the current parameters, then the
         decode on the pipeline thread."""
-        start = _mark(dev)
+        nonlocal submitted
+        submitted += 1
+        logged = submitted % cfg.trainer.log_interval == 0
+        start = _mark(dev, logged)
         obs = forward_fn(batch)
-        end = _mark(dev)
+        end = _mark(dev, logged)
         # the copy is bf16 by default (half the bytes); the C++ decoder wants
         # fp32 rows — upcast on the host
         obs_np = obs.cpu().float().numpy()
@@ -557,13 +577,15 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
             def run_step(item):
                 nonlocal step_no, ep_obj, ep_frames
                 utt_ids, batch, fut, fwd, sup = item
+                profiler.step(step_no)
                 t0 = time.perf_counter()
                 lat, decode_ms, pack_ms = fut.result()
                 wait_ms = (time.perf_counter() - t0) * 1e3
                 lat_k, lat_a = lat.num_slots, lat.src.shape[2]
-                start = _mark(dev)
+                logged = (step_no + 1) % cfg.trainer.log_interval == 0
+                start = _mark(dev, logged)
                 m = train_fn(batch, lat.to(dev), gen)
-                end = _mark(dev)
+                end = _mark(dev, logged)
                 step_no += 1
                 # device-scalar accumulation: reading a value per step would
                 # make the host wait for the device
@@ -595,6 +617,7 @@ def _run_on_the_fly(args, cfg, log, metrics_log, dataset, feat_fn, model, optimi
                     pending = item
             if pending is not None:
                 run_step(pending)
+            profiler.close()
             _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch,
                        f"{crit}(lat)", ep_obj, ep_frames)
     finally:
@@ -643,6 +666,7 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
     annealer = PlateauAnnealer(cfg.optimizer.anneal_factor, cfg.optimizer.anneal_patience)
     annealer.restore_from_checkpoint(resume_meta, optimizer)
     gen = torch.Generator(device=dev).manual_seed(par.seed)
+    profiler = StepProfiler(args.profile, dev, log)
     step_no = 0
     try:
         for epoch in range(start_epoch, cfg.trainer.num_epochs):
@@ -654,18 +678,20 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
             synced_frames = 0.0
             for batch in device_batches(batches, dev):
                 utt_ids = batch.pop("utt_ids")
-                marks = [_mark(dev)]
+                profiler.step(step_no)
+                logged = (step_no + 1) % cfg.trainer.log_interval == 0
+                marks = [_mark(dev, logged)]
                 obs = forward_fn(batch)
-                marks.append(_mark(dev))
+                marks.append(_mark(dev, logged))
                 lat, _scores, dropped = search(
                     obs, batch["num_frames"], max_active=max_active, max_arcs=max_arcs,
                     beam=beam, lattice_beam=lat_beam)
                 dropped_acc += dropped.sum()
-                marks.append(_mark(dev))
+                marks.append(_mark(dev, logged))
                 lat, _ = _compact_band(lat, None)
-                marks.append(_mark(dev))
+                marks.append(_mark(dev, logged))
                 m = train_fn(batch, lat, gen)
-                marks.append(_mark(dev))
+                marks.append(_mark(dev, logged))
                 step_no += 1
                 ep_obj += m["objective"] * m["frames"]
                 ep_frames += m["frames"]
@@ -691,6 +717,7 @@ def _run_device_search(args, cfg, log, metrics_log, dataset, feat_fn, model, opt
                     metrics_log.log(epoch=epoch, step=step_no, objective=obj, frame_acc=acc,
                                     utt_per_sec=u_s, frames_per_sec=f_s, lat_k=lat_k,
                                     lat_a=lat_a, lattice_links_dropped=n_dropped, **times)
+            profiler.close()
             _end_epoch(args, log, metrics_log, model, optimizer, annealer, epoch,
                        f"{crit}(lat)", ep_obj, ep_frames)
     finally:

@@ -6,6 +6,11 @@ builds the numpy batches, pins them and copies them to the device with
 the copy's event before it uses a batch, so the step never waits on the host.
 On the CPU the arrays are only wrapped as tensors. ``device_batches`` is the
 same without the thread, for consumers that capture CUDA graphs.
+
+Spans (utils/tracing.py): ``pk2/loader.batch`` around building one host
+batch and moving it (on the worker thread, or the caller's for
+``device_batches``), ``pk2/loader.wait`` around the consumer's wait for the
+worker.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from pykaldi2_tpu_torch.utils import tracing
 
 _SENTINEL = object()
 
@@ -62,8 +69,13 @@ def device_prefetch(
             if cuda:
                 torch.cuda.set_device(device)
             with torch.cuda.stream(copy_stream) if cuda else contextlib.nullcontext():
-                for b in batches:
-                    item = put(b)
+                it = iter(batches)
+                while True:
+                    with tracing.span("pk2/loader.batch"):
+                        b = next(it, _SENTINEL)
+                        item = b if b is _SENTINEL else put(b)
+                    if item is _SENTINEL:
+                        return
                     while not stop.is_set():
                         try:
                             q.put(item, timeout=0.1)
@@ -81,7 +93,8 @@ def device_prefetch(
     t.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("pk2/loader.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]
@@ -109,6 +122,12 @@ def device_batches(batches: Iterable[dict], device: torch.device) -> Iterator[di
     """The batches' numpy arrays moved to ``device`` on the calling thread,
     one batch at a time: for a consumer that captures CUDA graphs (the device
     search), which no other thread's CUDA work may meet mid-capture."""
-    for batch in batches:
-        yield {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-               if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+    it = iter(batches)
+    while True:
+        with tracing.span("pk2/loader.batch"):
+            batch = next(it, _SENTINEL)
+            if batch is _SENTINEL:
+                return
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+        yield out

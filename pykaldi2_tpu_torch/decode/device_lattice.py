@@ -36,7 +36,11 @@ permutation, as the reference's stable multi-operand ``lax.sort``.
 On a CUDA device ``DeviceSearch`` captures the T-frame loop once per (B, T,
 P, K, A, beams, ``return_olabels``) of its graph as one CUDA graph and
 replays it into static buffers: the loop holds no host sync. If the capture
-fails the call raises. On the CPU the same loop runs eagerly.
+fails the call raises. On the CPU the same loop runs eagerly. Each capture
+adds its host seconds to the counter ``search.captures``; the spans
+``pk2/search.capture``, ``pk2/search.replay`` (a replay or the eager loop)
+and ``pk2/search.compact`` (``_compact_band``) mark the calls
+(utils/tracing.py).
 
 ``banded_to_fsas`` converts the bands to the host decoder's ``(DenseFsa,
 frames)`` contract through the native ``banded_trim_extract``
@@ -64,6 +68,7 @@ import torch
 from pykaldi2_tpu_torch.graph.fst import EPS, Fst
 from pykaldi2_tpu_torch.ops.fb import NEG_INF
 from pykaldi2_tpu_torch.ops.fb_lattice import TimeSyncLattice
+from pykaldi2_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 _HALF_NEG = 0.5 * NEG_INF
@@ -707,12 +712,11 @@ class DeviceSearch:
     """Beam searches over one graph. On CUDA tensors each configuration
     (B, T, P, K, A, beams, ``return_olabels``) is captured on first use as
     one CUDA graph and replayed after; the captures live as long as this
-    object. ``last_capture`` holds the last capture's host seconds."""
+    object."""
 
     def __init__(self, graph: DeviceDecodeGraph):
         self.graph = graph
         self._captured: dict = {}
-        self.last_capture: dict = {}
 
     def __call__(self, obs: Tensor, num_frames: Tensor, *, max_active: int = 256,
                  max_arcs: int = 1024, beam: float = 16.0, lattice_beam: float = 8.0,
@@ -747,23 +751,25 @@ class DeviceSearch:
                 bool(return_olabels))
         with torch.no_grad():
             if not capture:
-                search = _Search(graph, b, t_len, obs.device, *conf)
-                search.run(obs, num_frames)
-                lat, scores, dropped, ol = search.finish(num_frames)
+                with tracing.span("pk2/search.replay"):
+                    search = _Search(graph, b, t_len, obs.device, *conf)
+                    search.run(obs, num_frames)
+                    lat, scores, dropped, ol = search.finish(num_frames)
             else:
                 key = (b, t_len, p, str(obs.device)) + conf
                 captured = self._captured.get(key)
                 if captured is None:
-                    t0 = time.perf_counter()
-                    captured = _Captured(_Search(graph, b, t_len, obs.device, *conf), obs,
-                                         num_frames)
-                    torch.cuda.synchronize(obs.device)
-                    self._captured[key] = captured
-                    self.last_capture = dict(s=time.perf_counter() - t0, frames=t_len,
-                                             batch=b)
-                lat, scores, dropped, ol = captured.replay(obs, num_frames)
-                lat = TimeSyncLattice(*(x.clone() for x in lat))
-                scores, dropped, ol = scores.clone(), dropped.clone(), ol.clone()
+                    with tracing.span("pk2/search.capture"):
+                        t0 = time.perf_counter()
+                        captured = _Captured(_Search(graph, b, t_len, obs.device, *conf), obs,
+                                             num_frames)
+                        torch.cuda.synchronize(obs.device)
+                        self._captured[key] = captured
+                        tracing.count("search.captures", time.perf_counter() - t0)
+                with tracing.span("pk2/search.replay"):
+                    lat, scores, dropped, ol = captured.replay(obs, num_frames)
+                    lat = TimeSyncLattice(*(x.clone() for x in lat))
+                    scores, dropped, ol = scores.clone(), dropped.clone(), ol.clone()
         if return_olabels:
             return lat, scores, dropped, ol
         return lat, scores, dropped
@@ -798,17 +804,18 @@ def _compact_band(lat: TimeSyncLattice, olabels, min_a: int = 128):
     frame's valid-link count. Valid links are a per-frame prefix (they leave
     the band sort best first, padding last), so only NEG_INF padding goes and
     the lattice is unchanged. Costs one scalar device sync."""
-    a_dim = lat.src.shape[2]
-    if a_dim <= min_a:
-        return lat, olabels
-    w = torch.as_tensor(lat.weight)
-    m = int((w > _HALF_NEG).sum(dim=2).max()) if w.numel() else 0
-    bucket = max(min_a, -(-max(m, 1) // 128) * 128)
-    if bucket >= a_dim:
-        return lat, olabels
-    lat2 = TimeSyncLattice(*(torch.as_tensor(x)[:, :, :bucket] for x in lat[:4]),
-                           final=torch.as_tensor(lat.final))
-    return lat2, None if olabels is None else torch.as_tensor(olabels)[:, :, :bucket]
+    with tracing.span("pk2/search.compact"):
+        a_dim = lat.src.shape[2]
+        if a_dim <= min_a:
+            return lat, olabels
+        w = torch.as_tensor(lat.weight)
+        m = int((w > _HALF_NEG).sum(dim=2).max()) if w.numel() else 0
+        bucket = max(min_a, -(-max(m, 1) // 128) * 128)
+        if bucket >= a_dim:
+            return lat, olabels
+        lat2 = TimeSyncLattice(*(torch.as_tensor(x)[:, :, :bucket] for x in lat[:4]),
+                               final=torch.as_tensor(lat.final))
+        return lat2, None if olabels is None else torch.as_tensor(olabels)[:, :, :bucket]
 
 
 def _host(x, dtype) -> np.ndarray:

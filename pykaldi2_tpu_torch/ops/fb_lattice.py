@@ -18,7 +18,9 @@ routes (``use_matvec_latfb``, ``_trans_mats_*``, ``_*_matvec_ts``) and the
 Pallas shape gate compute the same functions by other routes chosen for the
 TPU; they are not carried over. The arc→pdf reduction is one
 ``scatter_add_`` over the pdf axis: the reference's one-hot GEMM form of it
-(``set_den_pdf_ids``) was a workaround for the TPU's slow scatter.
+(``set_den_pdf_ids``) was a workaround for the TPU's slow scatter. The MMI
+function's forward and backward (K7, K8) keep the spans ``pk2/latfb.fwd``
+and ``pk2/latfb.bwd`` (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from pykaldi2_tpu_torch.ops import fb_lattice_cuda as K
 from pykaldi2_tpu_torch.ops.fb import NEG_INF, SilenceOpts
 from pykaldi2_tpu_torch.ops.fb_batched import _arc_acc_b
 from pykaldi2_tpu_torch.ops.fsa import DenseFsa
+from pykaldi2_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 
@@ -254,28 +257,29 @@ class _MmiLattice(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, obs, ali, lat, num_frames, mask, drop_frames, den_scale):
-        with torch.no_grad():
+        with tracing.span("pk2/latfb.fwd"), torch.no_grad():
             band = _band(obs, lat)
             active = _active_ts(obs.shape[1], num_frames)
             logz, alphas, norms = _logz_fwd_ts(band, lat, active)
             safe = torch.clamp(ali, min=0).long()
             num = torch.sum(torch.gather(obs, 2, safe[..., None])[..., 0] * mask, dim=-1)
-        ctx.lat, ctx.p_dim = lat, obs.shape[2]
-        ctx.drop_frames, ctx.den_scale = drop_frames, den_scale
-        ctx.save_for_backward(*band, active, logz, alphas, norms, safe, mask)
-        return num - den_scale * logz
+            ctx.lat, ctx.p_dim = lat, obs.shape[2]
+            ctx.drop_frames, ctx.den_scale = drop_frames, den_scale
+            ctx.save_for_backward(*band, active, logz, alphas, norms, safe, mask)
+            return num - den_scale * logz
 
     @staticmethod
     def backward(ctx, ct):
-        *band, active, logz, alphas, norms, safe, mask = ctx.saved_tensors
-        gamma = _occupancies_ts(band, ctx.lat, active, logz, alphas, norms, ctx.p_dim)
-        ali = safe[..., None]
-        m = mask[..., None]
-        if ctx.drop_frames:
-            m = m * (torch.gather(gamma, 2, ali) > 1e-20).to(torch.float32)
-        # one_hot(ali) − den_scale·gamma, built in place in gamma's buffer
-        grad = gamma.mul_(-ctx.den_scale).scatter_add_(2, ali, torch.ones_like(m))
-        return ct[:, None, None] * grad * m, None, None, None, None, None, None
+        with tracing.span("pk2/latfb.bwd"):
+            *band, active, logz, alphas, norms, safe, mask = ctx.saved_tensors
+            gamma = _occupancies_ts(band, ctx.lat, active, logz, alphas, norms, ctx.p_dim)
+            ali = safe[..., None]
+            m = mask[..., None]
+            if ctx.drop_frames:
+                m = m * (torch.gather(gamma, 2, ali) > 1e-20).to(torch.float32)
+            # one_hot(ali) − den_scale·gamma, built in place in gamma's buffer
+            grad = gamma.mul_(-ctx.den_scale).scatter_add_(2, ali, torch.ones_like(m))
+            return ct[:, None, None] * grad * m, None, None, None, None, None, None
 
 
 def mmi_objective_lattice_ts(obs: Tensor, ali: Tensor, lat: TimeSyncLattice,

@@ -37,7 +37,9 @@ route before any launch, as the reference's shape gate (lstm_pallas.py
 ``kernel_supported(h, p)`` holds, else the plain versions on the card,
 logged once per shape. ``lstm_fwd.launches``,
 ``lstm_bwd.launches``, ``lstm_proj_fwd.launches`` and
-``lstm_proj_bwd.launches`` count kernel launches.
+``lstm_proj_bwd.launches`` count kernel launches. The two autograd
+functions' forwards and backwards keep the spans ``pk2/lstm.fwd`` and
+``pk2/lstm.bwd`` (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Tuple
 import torch
 
 from pykaldi2_tpu_torch import device as D
+from pykaldi2_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 log = logging.getLogger(__name__)
@@ -540,26 +543,28 @@ class LstmSeq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, wh, mask):
-        mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
-        wh_b = wh.to(torch.bfloat16).contiguous()
-        ctx.kernel = _use_kernel(wh.shape[0], 0, xp.device)
-        fwd = lstm_fwd if ctx.kernel else lstm_fwd_plain
-        ys, cs, gates = fwd(xp.to(torch.float32).contiguous(), wh_b, mask2)
-        ctx.save_for_backward(wh_b, mask2, ys, cs, gates)
-        return ys
+        with tracing.span("pk2/lstm.fwd"):
+            mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
+            wh_b = wh.to(torch.bfloat16).contiguous()
+            ctx.kernel = _use_kernel(wh.shape[0], 0, xp.device)
+            fwd = lstm_fwd if ctx.kernel else lstm_fwd_plain
+            ys, cs, gates = fwd(xp.to(torch.float32).contiguous(), wh_b, mask2)
+            ctx.save_for_backward(wh_b, mask2, ys, cs, gates)
+            return ys
 
     @staticmethod
     def backward(ctx, dys):
-        wh_b, mask2, ys, cs, gates = ctx.saved_tensors
-        bwd = lstm_bwd if ctx.kernel else lstm_bwd_plain
-        dgates = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b)
-        t_len, b, h = ys.shape
-        dwh = None
-        if ctx.needs_input_grad[1]:
-            # dWh = sum_t h_{t-1}^T dgates_t: one bf16 GEMM with an fp32 result
-            h_prev = torch.cat([ys.new_zeros(1, b, h), ys[:-1]], dim=0)
-            dwh = mm_bf16(h_prev.reshape(-1, h).t(), dgates.reshape(-1, 4 * h))
-        return dgates, dwh, None
+        with tracing.span("pk2/lstm.bwd"):
+            wh_b, mask2, ys, cs, gates = ctx.saved_tensors
+            bwd = lstm_bwd if ctx.kernel else lstm_bwd_plain
+            dgates = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b)
+            t_len, b, h = ys.shape
+            dwh = None
+            if ctx.needs_input_grad[1]:
+                # dWh = sum_t h_{t-1}^T dgates_t: one bf16 GEMM with an fp32 result
+                h_prev = torch.cat([ys.new_zeros(1, b, h), ys[:-1]], dim=0)
+                dwh = mm_bf16(h_prev.reshape(-1, h).t(), dgates.reshape(-1, 4 * h))
+            return dgates, dwh, None
 
 
 class LstmProjSeq(torch.autograd.Function):
@@ -572,28 +577,31 @@ class LstmProjSeq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, wh, wp, mask):
-        mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
-        wh_b = wh.to(torch.bfloat16).contiguous()
-        wp_b = wp.to(torch.bfloat16).contiguous()
-        ctx.kernel = _use_kernel(wp.shape[0], wp.shape[1], xp.device)
-        fwd = lstm_proj_fwd if ctx.kernel else lstm_proj_fwd_plain
-        ys, cs, gates, hfull = fwd(xp.to(torch.float32).contiguous(), wh_b, wp_b, mask2)
-        ctx.save_for_backward(wh_b, wp_b, mask2, ys, cs, gates, hfull)
-        return ys
+        with tracing.span("pk2/lstm.fwd"):
+            mask2 = mask.reshape(mask.shape[0], mask.shape[1]).to(torch.float32).contiguous()
+            wh_b = wh.to(torch.bfloat16).contiguous()
+            wp_b = wp.to(torch.bfloat16).contiguous()
+            ctx.kernel = _use_kernel(wp.shape[0], wp.shape[1], xp.device)
+            fwd = lstm_proj_fwd if ctx.kernel else lstm_proj_fwd_plain
+            ys, cs, gates, hfull = fwd(xp.to(torch.float32).contiguous(), wh_b, wp_b, mask2)
+            ctx.save_for_backward(wh_b, wp_b, mask2, ys, cs, gates, hfull)
+            return ys
 
     @staticmethod
     def backward(ctx, dys):
-        wh_b, wp_b, mask2, ys, cs, gates, hfull = ctx.saved_tensors
-        bwd = lstm_proj_bwd if ctx.kernel else lstm_proj_bwd_plain
-        dgates, dhpm = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b, wp_b)
-        t_len, b, p = ys.shape
-        h = cs.shape[-1]
-        dwh = dwp = None
-        if ctx.needs_input_grad[1]:
-            # dWh = sum_t hp_{t-1}^T dgates_t
-            hp_prev = torch.cat([ys.new_zeros(1, b, p), ys[:-1]], dim=0)
-            dwh = mm_bf16(hp_prev.reshape(-1, p).t(), dgates.reshape(-1, 4 * h))
-        if ctx.needs_input_grad[2]:
-            # dWp = sum_t h_full_t^T dhp_m,t
-            dwp = mm_bf16(hfull.reshape(-1, h).t(), dhpm.reshape(-1, p))
-        return dgates, dwh, dwp, None
+        with tracing.span("pk2/lstm.bwd"):
+            wh_b, wp_b, mask2, ys, cs, gates, hfull = ctx.saved_tensors
+            bwd = lstm_proj_bwd if ctx.kernel else lstm_proj_bwd_plain
+            dgates, dhpm = bwd(dys.to(torch.float32).contiguous(), gates, cs, mask2, wh_b,
+                               wp_b)
+            t_len, b, p = ys.shape
+            h = cs.shape[-1]
+            dwh = dwp = None
+            if ctx.needs_input_grad[1]:
+                # dWh = sum_t hp_{t-1}^T dgates_t
+                hp_prev = torch.cat([ys.new_zeros(1, b, p), ys[:-1]], dim=0)
+                dwh = mm_bf16(hp_prev.reshape(-1, p).t(), dgates.reshape(-1, 4 * h))
+            if ctx.needs_input_grad[2]:
+                # dWp = sum_t h_full_t^T dhp_m,t
+                dwp = mm_bf16(hfull.reshape(-1, h).t(), dhpm.reshape(-1, p))
+            return dgates, dwh, dwp, None

@@ -28,6 +28,12 @@ group, as the reference's shard_map steps do over the ``data`` axis:
     thread or inside a CUDA-graph capture.
 
 The caller seeds each rank's generator (``parallel.mesh.rank_seed``).
+
+Spans (utils/tracing.py): ``pk2/train.forward`` around the CE step's
+forward and loss and the lattice ``train_fn``'s forward to its objective
+rows, ``pk2/train.backward`` around a train step's backward pass (on the
+thread that runs it), ``pk2/eval.forward`` around the lattice
+``forward_fn``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from pykaldi2_tpu_torch.models.nnet_am import NnetAM
 from pykaldi2_tpu_torch.parallel.data_parallel import COMPRESSIONS, psum, wrap_ddp
 from pykaldi2_tpu_torch.parallel.mesh import Mesh
 from pykaldi2_tpu_torch.pipeline import FeaturePipeline
+from pykaldi2_tpu_torch.utils import tracing
 from pykaldi2_tpu_torch.utils.lr import Optimizer
 
 Tensor = torch.Tensor
@@ -93,6 +100,15 @@ def _round_bf16(optimizer: Optimizer) -> None:
                 p.grad.copy_(p.grad.to(torch.bfloat16))
 
 
+def _update(optimizer: Optimizer, loss: Tensor, round_local: bool) -> None:
+    """Backward of ``loss``, then the optimizer's step."""
+    tracing.backward_span(loss)
+    loss.backward()
+    if round_local:
+        _round_bf16(optimizer)
+    optimizer.step()
+
+
 def make_ce_train_step(model: NnetAM, feat_fn: FeaturePipeline, optimizer: Optimizer,
                        mesh: Optional[Mesh] = None, grad_compression: str = "none"
                        ) -> Callable:
@@ -104,13 +120,12 @@ def make_ce_train_step(model: NnetAM, feat_fn: FeaturePipeline, optimizer: Optim
 
     def step(batch: dict, generator: Optional[torch.Generator] = None) -> dict:
         optimizer.zero_grad()
-        sum_nll, count, correct = ce_forward(fwd, feat_fn, batch, generator, True)
-        gcount, gnll, gcorrect = _global(group, count, sum_nll, correct)
-        denom = torch.clamp(gcount, min=1.0)
-        (sum_nll / denom).backward()
-        if round_local:
-            _round_bf16(optimizer)
-        optimizer.step()
+        with tracing.span("pk2/train.forward"):
+            sum_nll, count, correct = ce_forward(fwd, feat_fn, batch, generator, True)
+            gcount, gnll, gcorrect = _global(group, count, sum_nll, correct)
+            denom = torch.clamp(gcount, min=1.0)
+            loss = sum_nll / denom
+        _update(optimizer, loss, round_local)
         with torch.no_grad():
             return {"loss": gnll / denom, "frame_acc": gcorrect / denom, "frames": gcount}
 
@@ -155,10 +170,7 @@ def _se_update(optimizer: Optimizer, logits: Tensor, obj_rows: Tensor, labels: T
     loss = -obj / denom
     if ce_ratio > 0.0:
         loss = loss + ce_ratio * sum_nll / denom
-    loss.backward()
-    if round_local:
-        _round_bf16(optimizer)
-    optimizer.step()
+    _update(optimizer, loss, round_local)
     with torch.no_grad():
         return {"objective": gobj / denom, "frame_acc": gcorrect / denom,
                 "frames": gcount, "ce": gnll / denom}
@@ -279,8 +291,9 @@ def make_se_lattice_steps(
 
     @torch.no_grad()
     def forward_fn(batch: dict) -> Tensor:
-        logits = model(eval_feat_fn(batch), batch["mask"])
-        return acoustic_scores(logits, lp, acoustic_scale).to(out_dtype)
+        with tracing.span("pk2/eval.forward"):
+            logits = model(eval_feat_fn(batch), batch["mask"])
+            return acoustic_scores(logits, lp, acoustic_scale).to(out_dtype)
 
     def train_fn(batch: dict, lattice, generator: Optional[torch.Generator] = None) -> dict:
         if type(lattice) not in routes:
@@ -288,20 +301,21 @@ def make_se_lattice_steps(
                             f"{type(lattice).__name__}")
         mmi_fn, acc_fn = routes[type(lattice)]
         optimizer.zero_grad()
-        mask = batch["mask"].to(torch.float32)
-        nf = batch["num_frames"]
-        labels = batch["labels"].long()
-        feats = feat_fn(batch, generator=generator)
-        logits = fwd(feats, mask, train=True, generator=generator)
-        obs = acoustic_scores(logits, lp, acoustic_scale)
-        sup = mask * (labels >= 0)
-        if crit == "mmi":
-            obj_rows = mmi_fn(obs, labels, lattice, nf, sup, drop_frames, den_scale)
-        else:
-            ref, level = labels, "pdf"
-            if crit == "mpfe":
-                ref, level = p2p[torch.clamp(labels, min=0)], "phone"
-            obj_rows = acc_fn(obs, lattice, torch.clamp(ref, min=0), nf, level, p2p, sil)
+        with tracing.span("pk2/train.forward"):
+            mask = batch["mask"].to(torch.float32)
+            nf = batch["num_frames"]
+            labels = batch["labels"].long()
+            feats = feat_fn(batch, generator=generator)
+            logits = fwd(feats, mask, train=True, generator=generator)
+            obs = acoustic_scores(logits, lp, acoustic_scale)
+            sup = mask * (labels >= 0)
+            if crit == "mmi":
+                obj_rows = mmi_fn(obs, labels, lattice, nf, sup, drop_frames, den_scale)
+            else:
+                ref, level = labels, "pdf"
+                if crit == "mpfe":
+                    ref, level = p2p[torch.clamp(labels, min=0)], "phone"
+                obj_rows = acc_fn(obs, lattice, torch.clamp(ref, min=0), nf, level, p2p, sil)
         return _se_update(optimizer, logits, obj_rows, labels, sup, nf, ce_ratio, group,
                           round_local)
 
@@ -324,13 +338,13 @@ def make_eval_step(model: NnetAM, feat_fn: FeaturePipeline,
 
 
 class Throughput:
-    """utt/sec and frames/sec over a sliding window (the reference logs utt/sec)."""
+    """utt/sec and frames/sec since the last reset (the reference logs utt/sec)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.t0 = time.time()
+        self.t0 = time.perf_counter()
         self.utts = 0
         self.frames = 0
 
@@ -339,5 +353,5 @@ class Throughput:
         self.frames += frames
 
     def rates(self):
-        dt = max(time.time() - self.t0, 1e-9)
+        dt = max(time.perf_counter() - self.t0, 1e-9)
         return self.utts / dt, self.frames / dt

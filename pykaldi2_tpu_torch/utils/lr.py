@@ -20,6 +20,7 @@ from typing import Iterable, Optional
 import torch
 
 from pykaldi2_tpu_torch.config import OptimizerConfig
+from pykaldi2_tpu_torch.utils import tracing
 
 
 class Optimizer:
@@ -57,13 +58,14 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        if self.cfg.grad_clip > 0:
-            clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
-                                self.cfg.grad_clip)
-        lr = self.schedule(self.count) * self.lr_scale
-        for group in self.base.param_groups:
-            group["lr"] = lr
-        self.base.step()
+        with tracing.span("pk2/optimizer.step"):
+            if self.cfg.grad_clip > 0:
+                clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
+                                    self.cfg.grad_clip)
+            lr = self.schedule(self.count) * self.lr_scale
+            for group in self.base.param_groups:
+                group["lr"] = lr
+            self.base.step()
         self.count += 1
 
     def state_dict(self) -> dict:

@@ -30,7 +30,7 @@ MAPPED = {
 }
 RENAMED = {"ops/lstm_pallas.py": "ops/lstm_cuda.py",
            "ops/fb_lattice_pallas.py": "ops/fb_lattice_cuda.py"}
-NOT_CARRIED = {"utils/profiling.py"}   # jax.profiler; train_ce -profile uses torch.profiler
+NOT_CARRIED = {"utils/profiling.py"}   # jax.profiler; the port has utils/tracing.py
 
 
 def _public_names(init: pathlib.Path) -> list:

@@ -32,6 +32,7 @@ from pykaldi2_tpu_torch.decode.decoder import build_native  # noqa: E402
 from pykaldi2_tpu_torch.graph import (HmmTopology, TransitionModel,  # noqa: E402
                                       estimate_phone_bigram, make_decode_graph)
 from pykaldi2_tpu_torch.ops.lstm_cuda import bmm_bf16  # noqa: E402
+from pykaldi2_tpu_torch.utils import tracing  # noqa: E402
 
 
 def bmm_check(dev) -> None:
@@ -90,13 +91,14 @@ def probe(dev, name, fst, mode, b, t, kw) -> None:
     e1.record()
     torch.cuda.synchronize()
     t_rep = e0.elapsed_time(e1) / 3
+    captures, capture_s = tracing.take()["counters"]["search.captures"]
     for field, x, y, z in zip(cap[0]._fields, eager[0], cap[0], cpu[0]):
         print(f"  {name} {field}: captured == eager {torch.equal(x, y)}, "
               f"== CPU {torch.equal(y[:2].cpu(), z)}", flush=True)
     print(f"  {name} scores equal {torch.equal(eager[1], cap[1])}, dropped "
           f"{cap[2].tolist()}", flush=True)
     print(f"  {name} B={b} T={t}: CPU eager (2 rows) {t_cpu:.2f} s; card eager "
-          f"{t_eager / t * 1e3:.3f} ms a frame; capture {search.last_capture}; replay "
+          f"{t_eager / t * 1e3:.3f} ms a frame; {captures} capture, {capture_s:.2f} s; replay "
           f"{t_rep:.2f} ms = {t_rep / t * 1e3:.2f} us a frame", flush=True)
     valid = (cap[0].weight > -5e29).sum(2)
     t0 = time.perf_counter()
