@@ -105,7 +105,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      rescoring from the order-3 to the order-2 LM, posterior pruning; host
      ms an utterance) and
      ``bin/compare_posteriors.main`` on phase 12's card and CPU arks;
- 14. (a) ``bin/train_ce.main`` with ce.yaml's ``type: tdnn`` (5 layers of
+ 14. K12 (the search's frontier) against its plain version bit for bit, frame
+     by frame from the start state, on the SE den graph (K 200, K = S), the
+     200-word loop (K 2,000), an in-frame eps loop, drawn frames with ties,
+     ±0.0 and NEG_INF rows, and a 60,000-state graph whose rows and sort do
+     not fit in shared memory; timed beside its bound, the plain version and
+     ``torch.topk`` alone; then (a) ``bin/train_ce.main`` with ce.yaml's
+     ``type: tdnn`` (5 layers of
      1024, dilations 1,1,3,3,3, kernel 3) and ``type: transformer`` (4
      layers of 1024, 8 heads, ffn 2048) at phase 3's batch and optimizer:
      K1 launched, K2/K3 and K5/K6 not; the card against the CPU on two
@@ -114,18 +120,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      under MMI and sMBR at phase 9's settings and max_arcs 800: K1-K3 and
      K7/K8 or K9/K10 launched, the step split (forward, search, compaction,
      train) beside phase 9's host-decoder steps, links dropped; on one batch
-     the captured search against the eager loops on the card and (8 rows)
-     on the CPU and K7-K10 on its compacted band against their plain
-     versions; (c)
+     K12 along its search, the captured search against the eager loops on
+     the card and (8 rows) on the CPU and K7-K10 on its compacted band
+     against their plain versions; (c)
      ``bin/decode.main -decoder device`` over phase 12's 96 utterances,
      checkpoint and word loop at beam 16, max_active 2000, max_arcs 1024,
      lattice beam 8 (K1/K2 launched; wall, real-time factor, search ms a
      batch, links dropped, retries, hypotheses equal to phase 12's), then
      ``-on_device``, and ``-nbest 5`` through the device route on 8
      utterances at max_active 8 (the lattice tools are Python); (d) on one
-     batch of (b) and of (c) the captured search against the eager one:
-     times a frame, the capture's host time and the device operations a
-     frame of the eager search (the graph's nodes);
+     batch of (b) and of (c) K12 along the search and the captured search
+     against the eager one: ``search.frontier`` B x T a call, times a frame,
+     the capture's host time and the device operations a frame of the eager
+     search (the graph's nodes);
  15. the data-parallel paths, each in child processes: (a) in a one-rank
      ``nccl`` group from torchrun's environment, ``bin/train_ce.main
      -multihost`` on phase 3's corpus and config (K1-K3 launched in the
@@ -258,6 +265,10 @@ BACKBONE_TOL = {"float32": {"logits": 1e-3, "loss": 1e-5, "grad_rel": 1e-3},
 SEARCH_TOL, SEARCH_CPU_ROWS = 1e-6, 8
 # frames of the eager search whose device operations phase 14(d) counts
 OPS_FRAMES = 16
+# K12 (phase 14): the frames each comparison walks from the search's start
+# state, and the states of the synthetic graph whose rows do not fit in
+# shared memory
+FRONTIER_FRAMES, FRONTIER_BIG_S = 48, 60000
 
 
 def fail(msg: str) -> None:
@@ -1335,7 +1346,8 @@ def write_corpus(root: str, n_utts: int = 128, seconds=(1.0, 3.0), num_labels: i
 
 
 def counted() -> dict:
-    """Every kernel wrapper by its row name, K1-K11; each counts its launches."""
+    """Every kernel wrapper by its row name, K1-K12; each counts its launches."""
+    from pykaldi2_tpu_torch.decode.frontier import frontier
     from pykaldi2_tpu_torch.frontend.fused import fused_fbank, fused_mfcc
     from pykaldi2_tpu_torch.ops import fb_lattice_cuda as KC
     from pykaldi2_tpu_torch.ops import lstm_cuda as L
@@ -1345,7 +1357,8 @@ def counted() -> dict:
             "mfcc": fused_mfcc, "lstm_proj_fwd": L.lstm_proj_fwd,
             "lstm_proj_bwd": L.lstm_proj_bwd, "latfb_logz_fwd": KC.logz_fwd,
             "latfb_occupancies_bwd": KC.occupancies_bwd, "latfb_smbr_fwd": KC.smbr_fwd,
-            "latfb_smbr_bwd": KC.smbr_contribs_bwd, "block_matvec": block_matvec}
+            "latfb_smbr_bwd": KC.smbr_contribs_bwd, "block_matvec": block_matvec,
+            "search_frontier": frontier}
 
 
 def zero_counts() -> None:
@@ -3054,8 +3067,16 @@ def search_compare(dev, what: str, obs, graph, nf, kw: dict, cpu_rows: int = 0) 
     search = DL.DeviceSearch(graph)
     tracing.take()
     cap = search(obs, nf, **kw)
-    capture_s = tracing.take()["counters"].get("search.captures", (0, math.nan))[1]
+    counters = tracing.take()["counters"]
+    capture_s = counters.get("search.captures", (0, math.nan))[1]
     others = [(search(obs, nf, capture=False, **kw), "eager on the card", b)]
+    through_k12 = [counters.get("search.frontier"),
+                   tracing.take()["counters"].get("search.frontier")]
+    if through_k12 != [(1, b * t)] * 2:
+        fail(f"{what}: search.frontier read {through_k12} for the captured and the eager "
+             f"search, not one call of B x T = {b * t} frames each")
+    print(f"{what}: search.frontier {b * t} frames (B x T) for each of the captured and the "
+          f"eager search: every frame through K12", flush=True)
     if cpu_rows:
         others.append((DL.device_lattice_generate(obs[:cpu_rows].cpu(), graph.to("cpu"),
                                                   nf[:cpu_rows].cpu(), capture=False, **kw),
@@ -3095,14 +3116,314 @@ def search_compare(dev, what: str, obs, graph, nf, kw: dict, cpu_rows: int = 0) 
     return cap
 
 
-def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> None:
+def frontier_state(g, b: int) -> tuple:
+    """The search's start state over ``g``: (alpha [B, S], slot_prev [B, S])."""
+    import torch
+
+    alpha = g.eps0_w[None].expand(b, g.num_states).clone()
+    slot = torch.where(g.eps0_w > -5e29, 0, -1)[None].expand(b, g.num_states).clone()
+    return alpha, slot
+
+
+def frontier_equal(what: str, tabs, g, alpha, obs_t, slot, nf, t: int, k: int, beam: float,
+                   lbeam: float):
+    """One frame of K12 against ``frontier_plain`` on the same CUDA tensors:
+    every output equal bit for bit (fp32 compared as int32 bits). Returns
+    the plain version's outputs."""
+    import torch
+
+    from pykaldi2_tpu_torch.decode import frontier as FR
+
+    got = FR.frontier(g, tabs, alpha, obs_t, slot, nf, t, k, beam, lbeam)
+    want = FR.frontier_plain(g, alpha, obs_t, slot, nf, t, k, beam, lbeam)
+    for field, x, y in zip(FR.Frontier._fields, got, want):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y):
+            bad = int((x != y).sum()) if x.shape == y.shape else -1
+            fail(f"K12 {what}, frame {t}: {field} differs from frontier_plain in {bad} of "
+                 f"{y.numel()} entries")
+    return want
+
+
+def frontier_compare(what: str, g, obs, nf, k: int, beam: float, lbeam: float,
+                     frames: int = FRONTIER_FRAMES) -> tuple:
+    """K12 against ``frontier_plain`` along a search over ``g`` from its start
+    state, ``frames`` frames of ``obs`` [B, T, P], each frame's inputs the
+    plain version's previous outputs. Returns (alpha, slot_prev, tables)
+    after the last frame."""
+    import torch
+
+    from pykaldi2_tpu_torch.decode import frontier as FR
+
+    tabs = FR.frontier_tables(g)
+    b, frames = obs.shape[0], min(frames, obs.shape[1])
+    alpha, slot = frontier_state(g, b)
+    n0 = FR.frontier.launches
+    kept = []
+    for t in range(frames):
+        want = frontier_equal(what, tabs, g, alpha, obs[:, t], slot, nf, t, k, beam, lbeam)
+        alpha, slot = want.alpha_next, want.slot_cur
+        kept.append(want.keep_k.sum(dim=1))
+    torch.cuda.synchronize()
+    if FR.frontier.launches != n0 + frames:
+        fail(f"K12 {what}: {FR.frontier.launches - n0} launches for {frames} frames")
+    kept = torch.stack(kept).float()
+    print(f"K12 {what} (B={b}, S={g.num_states}, K={k}, L={g.eps_depth}, beams "
+          f"{beam:g}/{lbeam:g}): equal to frontier_plain bit for bit on {frames} frames from "
+          f"the start state; frontier states kept a row: first frame "
+          f"{float(kept[0].mean()):.1f}, last {float(kept[-1].mean()):.1f}", flush=True)
+    return alpha, slot, tabs
+
+
+def frontier_graph(s: int, s_lo: int, d_lo: int, d_hi: int, pdfs: int, seed: int, dev,
+                   tied: bool = False):
+    """A ``DeviceDecodeGraph`` of random in-arc tables (no eps arcs): S states,
+    the first s_lo with d_lo in-arcs, the rest d_hi with about a third of
+    them padding. ``tied``: the low bucket's weights are multiples of 0.5
+    with −0.0 among them, the high bucket's −0.3 − multiples of 0.25, so
+    that with scores in multiples of 0.5 many sums tie and no in-arc max
+    meets +0.0 against −0.0 (an order the plain version leaves open)."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.decode.device_lattice import DeviceDecodeGraph
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    rng = np.random.RandomState(seed)
+    s2 = s - s_lo
+    src_lo = rng.randint(0, s, (s_lo, d_lo))
+    src_hi = rng.randint(0, s, (s2, d_hi))
+    if tied:
+        w_lo = np.round(rng.randn(s_lo, d_lo) * 4) * 0.5
+        w_lo[rng.rand(s_lo, d_lo) < 0.1] = -0.0
+        w_hi = -0.3 - 0.25 * rng.randint(0, 12, (s2, d_hi))
+    else:
+        w_lo, w_hi = -3 * rng.rand(s_lo, d_lo), -3 * rng.rand(s2, d_hi)
+    pad = rng.rand(s2, d_hi) < 0.3
+    pad[:, 0] = False
+    src_hi[pad], w_hi[pad] = 0, NEG_INF
+    pdf = rng.randint(0, pdfs, s)
+    eps0 = np.full(s, NEG_INF, np.float32)
+    eps0[0] = 0.0
+
+    def i64(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    empty_z, empty_t = i64(np.zeros(0)), i64(np.zeros((0, 1)))
+    return DeviceDecodeGraph(
+        in_src_lo=i64(src_lo), in_w_lo=f32(w_lo), in_src_hi=i64(src_hi), in_w_hi=f32(w_hi),
+        in_ol_lo=i64(np.zeros((s_lo, d_lo))), in_ol_hi=i64(np.zeros((s2, d_hi))),
+        state_pdf=i64(pdf), final=f32(np.full(s, NEG_INF)), eps_z1=empty_z,
+        eps_src_z1=empty_t, eps_w_z1=f32(np.zeros((0, 1))), eps_z2=empty_z, eps_src_z2=empty_t,
+        eps_w_z2=f32(np.zeros((0, 1))), eps_z3=empty_z, eps_src_z3=empty_t,
+        eps_w_z3=f32(np.zeros((0, 1))), eps_out_dst=i64(np.zeros((s, 0))),
+        eps_out_w=f32(np.zeros((s, 0))), eps0_w=f32(eps0), start=0, num_states=s, s_lo=s_lo,
+        d_lo=d_lo, d_hi=d_hi, num_pdfs=int(pdf.max()) + 1, has_olabels=False, eps_depth=0)
+
+
+def eps_loop_fst(phones: int = SE_PHONES, seed: int = 17):
+    """A phone loop of 3-state HMMs (pdf 3q + j) whose junctions go through
+    input-epsilon hubs: every phone's last state and the start reach hub 1
+    by eps, hub 1 → hub 2 → hub 3 by eps, the first five phones also reach
+    hub 4; each hub enters every phone. Eps depth 3, three eps in-degree
+    buckets: the in-frame closure's layers."""
+    import numpy as np
+
+    from pykaldi2_tpu_torch.graph.fst import EPS, Fst
+
+    rng = np.random.RandomState(seed)
+    f = Fst()
+    start = f.add_state()
+    f.set_start(start)
+    st = [[f.add_state() for _ in range(3)] for _ in range(phones)]
+    hubs = [f.add_state() for _ in range(4)]
+    f.add_arc(start, EPS, EPS, -0.1, hubs[0])
+    f.add_arc(hubs[0], EPS, EPS, float(-rng.rand()), hubs[1])
+    f.add_arc(hubs[1], EPS, EPS, float(-rng.rand()), hubs[2])
+    for q in range(phones):
+        for j in range(3):
+            f.add_arc(st[q][j], 3 * q + j + 1, 0, float(np.log(rng.uniform(0.3, 0.8))),
+                      st[q][j])
+            if j < 2:
+                f.add_arc(st[q][j], 3 * q + j + 2, 0, float(-rng.rand()), st[q][j + 1])
+        f.add_arc(st[q][2], EPS, EPS, float(-rng.rand()), hubs[0])
+        if q < 5:
+            f.add_arc(st[q][2], EPS, EPS, float(-rng.rand()), hubs[3])
+        f.set_final(st[q][2], float(-rng.rand()))
+        f.add_arc(start, 3 * q + 1, 0, float(-2 - rng.rand()), st[q][0])
+        for h in hubs:
+            f.add_arc(h, 3 * q + 1, 0, float(-1 - 3 * rng.rand()), st[q][0])
+    return f
+
+
+def frontier_tied_checks(dev, what: str, g, ks, b: int = 16, draws: int = 4) -> None:
+    """K12 against ``frontier_plain`` on single frames of drawn inputs: alpha
+    in multiples of 0.5 with ±0.0 and NEG_INF entries, one row all NEG_INF,
+    observations in multiples of 0.25 with ±0.0, one row past its last frame,
+    slot_prev random; a beam that fp32 cannot hold exactly."""
+    import torch
+
+    from pykaldi2_tpu_torch.decode import frontier as FR
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    tabs = FR.frontier_tables(g)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    s = g.num_states
+
+    def signed_zeros(x):
+        u = torch.rand(x.shape, generator=gen, device=dev)
+        x = torch.where(u < 0.05, -0.0, x)
+        return torch.where((u >= 0.05) & (u < 0.1), 0.0, x)
+
+    for t in range(draws):
+        alpha = signed_zeros(torch.round(torch.randn(b, s, generator=gen, device=dev) * 6) / 2)
+        alpha = torch.where(torch.rand(b, s, generator=gen, device=dev) < 0.25, NEG_INF, alpha)
+        alpha[-1] = NEG_INF
+        obs_t = torch.round(torch.randn(b, SENONES, generator=gen, device=dev) * 8) / 4
+        obs_t = signed_zeros(obs_t)
+        nf = torch.full((b,), draws + 1, dtype=torch.int64, device=dev)
+        nf[1] = t
+        for k in ks:
+            slot = torch.randint(-1, k, (b, s), generator=gen, device=dev)
+            want = frontier_equal(what, tabs, g, alpha, obs_t, slot, nf, t, k, 10.3, 4.0)
+            ties = int((want.vals[:, 1:] == want.vals[:, :-1]).sum())
+            zeros = int((want.vals == 0).sum())
+            if t == 0:
+                print(f"K12 {what} (B={b}, S={s}, K={k}): equal to frontier_plain bit for bit "
+                      f"on {draws} drawn frames; frame 0: {ties} tied neighbours among the top "
+                      f"K, {zeros} of them ±0.0", flush=True)
+
+
+def frontier_bytes(g, tabs, b: int, k: int) -> int:
+    """Bytes one frame of K12 needs: the tables once, alpha and the pdfs'
+    observations of each row read, the rows' outputs written."""
+    s = g.num_states
+    tables = sum(x.numel() * x.element_size() for x in
+                 (tabs.lo_src, tabs.lo_w, tabs.hi_src, tabs.hi_w, tabs.pdf, tabs.elayers,
+                  *tabs.ez, *tabs.esrc, *tabs.ew))
+    pdfs = int(g.state_pdf.unique().numel())
+    return tables + b * (4 * s + 4 * pdfs + 8 + (4 + 4 + 8) * s + (4 + 8 + 1 + 1) * k)
+
+
+def frontier_time(what: str, g, tabs, obs_t, alpha, slot, nf, t: int, k: int, beam: float,
+                  lbeam: float) -> dict:
+    """K12's time on one frame (a CUDA graph of 50 calls, and eager calls)
+    beside its bound, the plain version's (likewise) and ``torch.topk``
+    alone on the plain version's [B, S] int64 keys. Returns the kernel row."""
+    import torch
+
+    from pykaldi2_tpu_torch.decode import frontier as FR
+    from pykaldi2_tpu_torch.ops.fb import NEG_INF
+
+    args = (g, tabs, alpha, obs_t, slot, nf, t, k, beam, lbeam)
+    plain_args = (g, alpha, obs_t, slot, nf, t, k, beam, lbeam)
+    ms = timed_graph(lambda: FR.frontier(*args))
+    eager = timed(lambda: FR.frontier(*args), n=50)
+    plain_ms = timed_graph(lambda: FR.frontier_plain(*plain_args))
+    plain_eager = timed(lambda: FR.frontier_plain(*plain_args), n=20)
+    r_lo, r_hi = FR.relax(g, alpha)
+    m = r_lo.amax(dim=2) if r_hi is None else torch.cat([r_lo.amax(dim=2), r_hi.amax(dim=2)], 1)
+    new_alpha = torch.where(m > -5e29, m + obs_t.index_select(1, g.state_pdf), NEG_INF)
+    key = (~FR._order_key(new_alpha)) * (1 << 32) + torch.arange(g.num_states, device=m.device)
+    lib_ms = timed_graph(lambda: torch.topk(key, k, dim=1, largest=False, sorted=True))
+    b = alpha.shape[0]
+    nbytes = frontier_bytes(g, tabs, b, k)
+    slots = g.s_lo * g.d_lo + (g.num_states - g.s_lo) * g.d_hi
+    bms, by = bound_ms(nbytes, [(3 * b * slots, FP32_FLOPS)])
+    print(f"kernel K12 search_frontier {what} (B={b}, S={g.num_states}, K={k}): {ms:.4f} ms "
+          f"(CUDA graph of 50 calls; eager calls {eager:.4f} ms) | plain {plain_ms:.4f} ms "
+          f"(CUDA graph; eager {plain_eager:.4f} ms) | library (torch.topk alone) "
+          f"{lib_ms:.4f} ms | bound {bms:.5f} ms ({by}, {nbytes} bytes)", flush=True)
+    return dict(name="search_frontier", route="cuda",
+                source="pykaldi2_tpu_torch/csrc/search.cu",
+                replaces="none (XLA ops in pykaldi2_tpu/decode/device_lattice.py)", ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def frontier_checks(dev) -> dict:
+    """Phase 14, K12: the frontier kernel against ``frontier_plain``, bit for
+    bit, along searches from the start state on tools/device_search_probe.py's
+    SE den graph (K 200 at the benchmark's beams 16/8, and K = S) and 200-word
+    loop (K 2,000), an in-frame eps loop (K 64 and K = S), drawn frames with
+    ties, ±0.0 and NEG_INF rows (K 200 and K = S), and a 60,000-state graph
+    whose rows do not fit in shared memory (K 200, 7,000 and S: the sort
+    buffer in global memory too); then timed at the den graph's K 200 (B=16)
+    and the word loop's K 2,000 (B=8). Returns the den graph's kernel row."""
+    import numpy as np
+    import torch
+
+    from pykaldi2_tpu_torch.bin.train_se import phone_loop_den_fst
+    from pykaldi2_tpu_torch.decode import device_lattice as DL
+    from pykaldi2_tpu_torch.graph import (HmmTopology, TransitionModel, estimate_phone_bigram,
+                                          make_decode_graph)
+
+    t0 = time.perf_counter()
+    tm = TransitionModel(HmmTopology.three_state(range(1, SE_PHONES + 1)))
+    rng = np.random.RandomState(0)
+    seqs = [list(rng.randint(1, SE_PHONES + 1, 30)) for _ in range(50)]
+    den = DL.pack_decode_graph(
+        phone_loop_den_fst(tm, estimate_phone_bigram(seqs, tm.topo.phones))).to(dev)
+    lexicon = {f"w{i:03d}": [[int(p) for p in rng.randint(1, SE_PHONES + 1, rng.randint(2, 6))]]
+               for i in range(DECODE_WORDS)}
+    word = DL.pack_decode_graph(make_decode_graph(tm, lexicon, {w: i + 1 for i, w in
+                                                                enumerate(lexicon)}),
+                                eps_mode="auto").to(dev)
+    eps = DL.pack_decode_graph(eps_loop_fst(), eps_mode="inframe").to(dev)
+    if eps.eps_depth < 3:
+        fail(f"the eps loop packed with eps depth {eps.eps_depth}, not 3")
+
+    def obs_for(b, t):
+        gen = torch.Generator(device=dev).manual_seed(5 + b)
+        return 0.1 * torch.log_softmax(
+            torch.randn(b, t, SENONES, generator=gen, device=dev) * 3, dim=-1)
+
+    def nf_for(b, t):
+        nf = torch.full((b,), t, dtype=torch.int64, device=dev)
+        nf[-1] = t - 7
+        return nf
+
+    b_den, b_word = 16, 8
+    obs_den, obs_word = obs_for(b_den, FRONTIER_FRAMES), obs_for(b_word, FRONTIER_FRAMES)
+    nf_den, nf_word = nf_for(b_den, FRONTIER_FRAMES), nf_for(b_word, FRONTIER_FRAMES)
+    den_state = frontier_compare("SE den graph", den, obs_den, nf_den, 200, 16.0, 8.0)
+    frontier_compare("SE den graph, K = S", den, obs_den, nf_den, den.num_states, 16.0, 8.0)
+    k_word = min(DEV_DECODE["max_active"], word.num_states)
+    word_state = frontier_compare("decode word loop", word, obs_word, nf_word, k_word,
+                                  DEV_DECODE["beam"], DEV_DECODE["lattice_beam"])
+    for k in (64, eps.num_states):
+        frontier_compare("in-frame eps loop" + (", K = S" if k == eps.num_states else ""), eps,
+                         obs_word, nf_word, k, 16.0, 8.0)
+    tied = frontier_graph(3000, 2000, 1, 6, SENONES, 29, dev, tied=True)
+    frontier_tied_checks(dev, "tied scores", tied, (200, tied.num_states))
+    big = frontier_graph(FRONTIER_BIG_S, FRONTIER_BIG_S * 5 // 6, 2, 8, SENONES, 31, dev)
+    for k in (200, 7000, big.num_states):
+        frontier_compare(f"{big.num_states}-state graph (rows in global memory)", big,
+                         obs_den[:4], nf_den[:4], k, 16.0, 8.0, frames=8)
+    print(f"K12 checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    alpha, slot, tabs = den_state
+    t = FRONTIER_FRAMES - 1
+    row = frontier_time("SE den graph", den, tabs, obs_den[:, t], alpha, slot, nf_den, t, 200,
+                        16.0, 8.0)
+    alpha, slot, tabs = word_state
+    frontier_time("decode word loop", word, tabs, obs_word[:, t], alpha, slot, nf_word, t,
+                  k_word, DEV_DECODE["beam"], DEV_DECODE["lattice_beam"])
+    row["max_abs_err"] = 0.0
+    return row
+
+
+def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> int:
     """Phase 14(b): ``bin/train_se.main -on_the_fly -decoder device`` under
     MMI and sMBR at phase 9's settings and max_arcs 800, from phase 3's
-    checkpoint: K1-K3 and the criterion's K7/K8 or K9/K10 launch; the step
-    split from ``metrics.jsonl`` beside phase 9's host-decoder steps; then one
-    batch: the captured search against the eager loops on the card and the
-    CPU (phase 14(d)), and K7-K10 on its compacted band against their plain
-    versions."""
+    checkpoint: K1-K3, K12 and the criterion's K7/K8 or K9/K10 launch; the
+    step split from ``metrics.jsonl`` beside phase 9's host-decoder steps;
+    then one batch: K12 against its plain version along the search, the
+    captured search against the eager loops on the card and the CPU (phase
+    14(d)), and K7-K10 on its compacted band against their plain versions.
+    Returns K12's launches in the MMI run."""
     import torch
 
     from pykaldi2_tpu_torch.bin import train_se
@@ -3136,7 +3457,10 @@ def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> 
         if rc != 0:
             fail(f"train_se.main -decoder device -criterion {crit} returned {rc}")
         need_launches(f"device-search SE {crit} path", got,
-                      positive=("fbank", "lstm_fwd", "lstm_bwd") + need[crit])
+                      positive=("fbank", "lstm_fwd", "lstm_bwd", "search_frontier")
+                      + need[crit])
+        if crit == "mmi":
+            frontier_launches = got["search_frontier"]
         steps = step_records(exp)
         if len(steps) != SE_UTTS // SE_B or not all(math.isfinite(r["objective"])
                                                      for r in steps):
@@ -3182,6 +3506,9 @@ def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> 
                                         obs_transfer_dtype="float32")
     obs, nf = fwd(batch), batch["num_frames"]
     kw = {k: DEV_SE[k] for k in ("beam", "lattice_beam", "max_active", "max_arcs")}
+    frontier_compare("SE den graph, phase 14(b)'s first batch", den, obs, nf.long(),
+                     min(DEV_SE["max_active"], den.num_states), DEV_SE["beam"],
+                     DEV_SE["lattice_beam"])
     lat, _ = _compact_band(search_compare(dev, "SE den graph", obs, den, nf, kw,
                                           cpu_rows=SEARCH_CPU_ROWS)[0], None)
     ref = torch.randint(0, SE_PHONES * 3, tuple(obs.shape[:2]), device=dev,
@@ -3190,6 +3517,7 @@ def device_se_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str) -> 
     print("K7-K10 on the device-decoded band (B=%d, T=%d, K=%d, A=%d) vs plain: %s"
           % (obs.shape[0], obs.shape[1], lat.num_slots, lat.src.shape[2],
              ", ".join(f"{k} {v:.3g}" for k, v in errs.items())), flush=True)
+    return frontier_launches
 
 
 def device_decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, dec: dict) -> None:
@@ -3249,7 +3577,8 @@ def device_decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, de
     launches = read_counts()
     if rc != 0:
         fail(f"decode.main -decoder device returned {rc}")
-    need_launches("device decode path", launches, positive=("fbank", "lstm_fwd"),
+    need_launches("device decode path", launches,
+                  positive=("fbank", "lstm_fwd", "search_frontier"),
                   zero=("lstm_bwd", "latfb_logz_fwd", "latfb_occupancies_bwd",
                         "latfb_smbr_fwd", "latfb_smbr_bwd"))
     first = [c for c in calls if c[3] == DEV_DECODE["lattice_beam"]]
@@ -3322,23 +3651,31 @@ def device_decode_phase(dev, root: str, se_cfg: str, se_data: str, ckpt: str, de
              if k != "utt_ids"}
     word = DL.pack_decode_graph(g, eps_mode="auto").to(dev)
     kw = dict(DEV_DECODE, return_olabels=True)
-    search_compare(dev, "decode word loop", forward(batch), word, batch["num_frames"], kw)
+    obs = forward(batch)
+    frontier_compare("decode word loop, phase 14(c)'s first batch", word, obs,
+                     batch["num_frames"].long(), min(DEV_DECODE["max_active"], word.num_states),
+                     DEV_DECODE["beam"], DEV_DECODE["lattice_beam"])
+    search_compare(dev, "decode word loop", obs, word, batch["num_frames"], kw)
 
 
 def device_search_phase(dev, root: str, ce_ckpt: str, se_cfg: str, se_data: str,
-                        se_ckpt: str, dec: dict, data_yaml: str, base: dict) -> None:
-    """Phase 14: the other backbones (a), and the search on the card in
-    training (b) and decoding (c), each captured search held against the
-    eager loops (d)."""
+                        se_ckpt: str, dec: dict, data_yaml: str, base: dict) -> tuple:
+    """Phase 14: K12 against its plain version and timed, the other
+    backbones (a), and the search on the card in training (b) and decoding
+    (c), each captured search held against the eager loops (d). Returns
+    (K12's kernel row, its launches in (b)'s MMI run)."""
     t_phase = time.perf_counter()
+    row = frontier_checks(dev)
     backbone_phase(dev, root, data_yaml, base)
     t_b = time.perf_counter()
-    device_se_phase(dev, root, ce_ckpt, se_cfg, se_data)
+    launches = device_se_phase(dev, root, ce_ckpt, se_cfg, se_data)
     t_c = time.perf_counter()
     device_decode_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
     t_end = time.perf_counter()
-    print(f"phase 14 (backbones {t_b - t_phase:.1f} s, device-search SE {t_c - t_b:.1f} s, "
-          f"device decode {t_end - t_c:.1f} s): {t_end - t_phase:.1f} s", flush=True)
+    print(f"phase 14 (K12 and backbones {t_b - t_phase:.1f} s, device-search SE "
+          f"{t_c - t_b:.1f} s, device decode {t_end - t_c:.1f} s): {t_end - t_phase:.1f} s",
+          flush=True)
+    return row, launches
 
 
 # phase 15: the data-parallel paths. (b)/(c) hold two ranks to one process at
@@ -4027,8 +4364,9 @@ def main() -> int:
     se_ckpt = os.path.join(root, "se_mmi", "model.0.npz")
     dec = decode_phase(dev, root, se_cfg, se_data, se_ckpt)
     align_graph_phase(dev, root, se_cfg, se_data, se_ckpt, dec)
-    device_search_phase(dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data, se_ckpt,
-                        dec, data_yaml, base)
+    rows["search_frontier"], launches["search_frontier"] = device_search_phase(
+        dev, root, os.path.join(exp, "model.0.npz"), se_cfg, se_data, se_ckpt, dec, data_yaml,
+        base)
     parallel_phase(dev, root, exp, cfg_yaml, data_yaml, se_cfg, se_data,
                    os.path.join(exp, "model.0.npz"))
     generic_lattice_phase(dev, root, first, se_cfg, se_data, os.path.join(exp, "model.0.npz"))

@@ -27,17 +27,19 @@ every frame (``"inframe"``: topo-layered eps relaxations, and the link band
 extended along eps chains in L age-gated rounds); ``"auto"`` picks inframe
 where the graph qualifies.
 
-The frontier is one ``torch.topk`` over a key that packs the float total
-order of the score (−0.0 below +0.0) above the state index, so the top K and
-their order are exactly ``lax.top_k``'s, ties to the lowest index, at any S.
-The band sorts are stable ``torch.sort``s whose payloads follow the
+The frontier (relaxation, eps layers, top K, pruning; decode/frontier.py)
+is one launch of kernel K12 a frame on CUDA tensors, and its plain version
+on the CPU: its top K and their order are exactly ``lax.top_k``'s (the float
+total order, −0.0 below +0.0, ties to the lowest index), at any S. The band
+sorts are stable ``torch.sort``s whose payloads follow the
 permutation, as the reference's stable multi-operand ``lax.sort``.
 
 On a CUDA device ``DeviceSearch`` captures the T-frame loop once per (B, T,
 P, K, A, beams, ``return_olabels``) of its graph as one CUDA graph and
 replays it into static buffers: the loop holds no host sync. If the capture
 fails the call raises. On the CPU the same loop runs eagerly. Each capture
-adds its host seconds to the counter ``search.captures``; the spans
+adds its host seconds to the counter ``search.captures``, each call whose
+frames ran through K12 its B × T frames to ``search.frontier``; the spans
 ``pk2/search.capture``, ``pk2/search.replay`` (a replay or the eager loop)
 and ``pk2/search.compact`` (``_compact_band``) mark the calls
 (utils/tracing.py).
@@ -65,6 +67,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pykaldi2_tpu_torch.decode.frontier import frontier, frontier_tables, relax, takes_kernel
 from pykaldi2_tpu_torch.graph.fst import EPS, Fst
 from pykaldi2_tpu_torch.ops.fb import NEG_INF
 from pykaldi2_tpu_torch.ops.fb_lattice import TimeSyncLattice
@@ -399,26 +402,6 @@ def pack_decode_graph(fst: Fst, word_penalty: float = 0.0, max_in_degree: int = 
 # ---------------------------------------------------------------------------
 
 
-def _order_key(x: Tensor) -> Tensor:
-    """fp32 → int64 key, ascending exactly as the float total order
-    (−0.0 below +0.0): the reference's monotone int32 key."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    return torch.where(bits < 0, -(bits & 0x7FFFFFFF) - 1, bits)
-
-
-def _frontier_top_k(new_alpha: Tensor, k: int):
-    """Exact top-K over [B, S]: ``lax.top_k``'s values and indices, ties to
-    the lowest index in the float total order. One ``torch.topk`` over
-    distinct int64 keys (the score's order key, complemented, above the
-    state index), so the result does not depend on topk's tie handling."""
-    s = new_alpha.shape[1]
-    idx = torch.arange(s, device=new_alpha.device, dtype=torch.int64)
-    key = (~_order_key(new_alpha)) * (1 << 32) + idx
-    top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    idx = top & 0xFFFFFFFF
-    return new_alpha.gather(1, idx), idx
-
-
 def _search_dims(graph: DeviceDecodeGraph, max_active: int, max_arcs: int):
     """(K, A, bits of a frontier position) of a search."""
     K = min(max_active, graph.num_states)
@@ -448,11 +431,7 @@ class _Search:
         self.S, self.S1 = g.num_states, g.s_lo
         self.S2, self.Dc = self.S - self.S1, g.d_lo + g.d_hi
         self.L = g.eps_depth
-        self.zbuckets = [(g.eps_z1, g.eps_src_z1, g.eps_w_z1, g.eps_layers_z1),
-                         (g.eps_z2, g.eps_src_z2, g.eps_w_z2, g.eps_layers_z2),
-                         (g.eps_z3, g.eps_src_z3, g.eps_w_z3, g.eps_layers_z3)]
-        self.src_lo_flat = g.in_src_lo.reshape(-1)
-        self.src_hi_flat = g.in_src_hi.reshape(-1)
+        self.tabs = frontier_tables(g)
         self.slot_ids = torch.arange(K, device=dev).expand(b, K)
         self.kpos = torch.arange(K, device=dev)[None, :, None].expand(b, K, self.Dc)
         self.alpha0 = g.eps0_w[None].expand(b, self.S).clone()
@@ -468,32 +447,6 @@ class _Search:
             "dropped": torch.zeros(t_len, b, dtype=torch.int64, device=dev),
         }
 
-    def relax(self, al: Tensor):
-        """[B, S] scores → the buckets' in-arc relaxations."""
-        g, b = self.g, self.b
-        r_lo = torch.clamp_min(al.index_select(1, self.src_lo_flat).view(b, self.S1, g.d_lo)
-                               + g.in_w_lo, NEG_INF)
-        if not self.S2:
-            return r_lo, None
-        r_hi = torch.clamp_min(al.index_select(1, self.src_hi_flat).view(b, self.S2, g.d_hi)
-                               + g.in_w_hi, NEG_INF)
-        return r_lo, r_hi
-
-    def eps_layer(self, al: Tensor, r: int) -> Tensor:
-        """Topo layer r of the in-frame eps closure: each eps destination of
-        depth r + 1 takes the max of its eps in-arcs from closed sources."""
-        b = self.b
-        for z, zsrc, zw, layers in self.zbuckets:
-            if not z.shape[0]:
-                continue
-            lo, hi = layers[r], layers[r + 1]
-            if hi > lo:
-                e = zsrc.shape[1]
-                rz = (al.index_select(1, zsrc[lo:hi].reshape(-1)).view(b, hi - lo, e)
-                      + zw[lo:hi]).amax(dim=2)
-                al = al.scatter_reduce(1, z[lo:hi].expand(b, hi - lo), rz, "amax")
-        return al
-
     def run(self, obs: Tensor, num_frames: Tensor) -> None:
         alpha, slot_prev = self.alpha0, self.slot0
         for t in range(self.t_len):
@@ -503,28 +456,11 @@ class _Search:
               slot_prev: Tensor):
         g, b, K, A, L = self.g, self.b, self.K, self.A, self.L
         S1, bits_k, beam, lbeam = self.S1, self.bits_k, self.beam, self.lattice_beam
-        r_lo, r_hi = self.relax(alpha)
-        m = r_lo.amax(dim=2)
-        if self.S2:
-            m = torch.cat([m, r_hi.amax(dim=2)], dim=1)
-        obs_s = obs_t.index_select(1, g.state_pdf)                       # [B, S]
-        new_alpha = torch.where(m > _HALF_NEG, m + obs_s, NEG_INF)
-        for r in range(L):
-            new_alpha = self.eps_layer(new_alpha, r)
-        best = new_alpha.amax(dim=1)
-        vals, idx = _frontier_top_k(new_alpha, K)                        # [B, K]
-        # the search frontier shapes alpha; lattice nodes are the frontier
-        # states within lattice_beam of the frame's best
-        keep_k = (vals >= best[:, None] - beam) & (vals > _HALF_NEG)
-        emit_k = keep_k & (vals >= best[:, None] - lbeam)
-        cutoff = torch.maximum(best - beam, torch.where(keep_k[:, K - 1], vals[:, K - 1],
-                                                        best - beam))[:, None]
-        alpha_next = torch.where(new_alpha >= cutoff, new_alpha, NEG_INF)
-        slot_cur = torch.full_like(slot_prev, -1).scatter_reduce(
-            1, idx, torch.where(emit_k, self.slot_ids, -1), "amax")
+        obs_s, vals, idx, keep_k, emit_k, alpha_next, slot_cur = frontier(
+            g, self.tabs, alpha, obs_t, slot_prev, num_frames, t, K, beam, lbeam)
         # link candidates: a second relaxation over the emitted-masked alpha
         alpha_emit = torch.where(slot_prev >= 0, alpha, NEG_INF)
-        l_lo, l_hi = self.relax(alpha_emit)
+        l_lo, l_hi = relax(g, alpha_emit)
         active = (t < num_frames)[:, None, None]
         lo_m = idx < S1
         idx_lo = torch.where(lo_m, idx, 0)
@@ -595,8 +531,7 @@ class _Search:
         out["idx"][t] = idx
         out["vals"][t] = vals
         out["dropped"][t] = dropped_t
-        act1 = active[:, :, 0]
-        return (torch.where(act1, alpha_next, alpha), torch.where(act1, slot_cur, slot_prev))
+        return alpha_next, slot_cur
 
     def eps_rounds(self, score_a, pay_a, w_a, src_a, ol_a, dropped_t, idx, vals, keep_k):
         """The in-frame eps rounds on the band: each link whose destination
@@ -745,7 +680,7 @@ class DeviceSearch:
             capture = obs.device.type == "cuda"
         if capture and obs.device.type != "cuda":
             raise ValueError("capture needs CUDA tensors")
-        obs = obs.detach().to(torch.float32)
+        obs = obs.detach().to(torch.float32).contiguous()
         num_frames = num_frames.to(obs.device, torch.int64)
         conf = (int(max_active), int(max_arcs), float(beam), float(lattice_beam),
                 bool(return_olabels))
@@ -770,6 +705,8 @@ class DeviceSearch:
                     lat, scores, dropped, ol = captured.replay(obs, num_frames)
                     lat = TimeSyncLattice(*(x.clone() for x in lat))
                     scores, dropped, ol = scores.clone(), dropped.clone(), ol.clone()
+        if takes_kernel(obs.device):
+            tracing.count("search.frontier", b * t_len)
         if return_olabels:
             return lat, scores, dropped, ol
         return lat, scores, dropped

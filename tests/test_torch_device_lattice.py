@@ -18,6 +18,7 @@ gradients on the device lattices against JAX's (fp32 summation order:
 rtol 1e-5).
 """
 
+import contextlib
 import sys
 
 import jax
@@ -32,6 +33,7 @@ from pykaldi2_tpu.graph.fst import EPS, Fst as JFst
 from pykaldi2_tpu.ops import fb_lattice as JL
 
 from pykaldi2_tpu_torch.decode import device_lattice as PD
+from pykaldi2_tpu_torch.decode import frontier as FR
 from pykaldi2_tpu_torch.graph.fst import Fst as PFst
 from pykaldi2_tpu_torch.ops import fb_lattice as PL
 from pykaldi2_tpu_torch.ops.fb import NEG_INF
@@ -298,7 +300,7 @@ def test_frontier_top_k_matches_lax_top_k(b, s, k, tie_q):
     zeros = rng.rand(b, s) < 0.05
     a[zeros] = np.where(rng.rand(int(zeros.sum())) < 0.5, -0.0, 0.0)
     ref_v, ref_i = jax.lax.top_k(jnp.asarray(a), k)
-    got_v, got_i = PD._frontier_top_k(torch.from_numpy(a), k)
+    got_v, got_i = FR._frontier_top_k(torch.from_numpy(a), k)
     np.testing.assert_array_equal(got_v.numpy().view(np.int32),
                                   np.asarray(ref_v).view(np.int32))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
@@ -465,3 +467,279 @@ def test_frame_lattice_best_path_matches_word_acceptor(name, eps_mode, kw):
         words, score = frame_lattice_best_path(fsa, frames, ll)
         assert words == want[0]
         np.testing.assert_allclose(score, want[1], rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the frontier (decode/frontier.py): the plain version against the frame's
+# former code, the K12 wrapper's checks, and the engagement counter
+# ---------------------------------------------------------------------------
+
+
+def _frame_frontier(search, t, obs_t, num_frames, alpha, slot_prev):
+    """The first half of ``_Search.frame`` as the frame computed it before
+    decode/frontier.py (its relax and eps_layer methods inlined), with the
+    frame's closing ``where(active, ...)`` on alpha and slot."""
+    g, b, K, L = search.g, search.b, search.K, search.L
+    S1, S2 = g.s_lo, g.num_states - g.s_lo
+    beam, lbeam, half = search.beam, search.lattice_beam, 0.5 * NEG_INF
+
+    def relax(al):
+        r_lo = torch.clamp_min(al.index_select(1, g.in_src_lo.reshape(-1)).view(b, S1, g.d_lo)
+                               + g.in_w_lo, NEG_INF)
+        if not S2:
+            return r_lo, None
+        r_hi = torch.clamp_min(al.index_select(1, g.in_src_hi.reshape(-1)).view(b, S2, g.d_hi)
+                               + g.in_w_hi, NEG_INF)
+        return r_lo, r_hi
+
+    def eps_layer(al, r):
+        for z, zsrc, zw, layers in ((g.eps_z1, g.eps_src_z1, g.eps_w_z1, g.eps_layers_z1),
+                                    (g.eps_z2, g.eps_src_z2, g.eps_w_z2, g.eps_layers_z2),
+                                    (g.eps_z3, g.eps_src_z3, g.eps_w_z3, g.eps_layers_z3)):
+            if not z.shape[0]:
+                continue
+            lo, hi = layers[r], layers[r + 1]
+            if hi > lo:
+                e = zsrc.shape[1]
+                rz = (al.index_select(1, zsrc[lo:hi].reshape(-1)).view(b, hi - lo, e)
+                      + zw[lo:hi]).amax(dim=2)
+                al = al.scatter_reduce(1, z[lo:hi].expand(b, hi - lo), rz, "amax")
+        return al
+
+    r_lo, r_hi = relax(alpha)
+    m = r_lo.amax(dim=2)
+    if S2:
+        m = torch.cat([m, r_hi.amax(dim=2)], dim=1)
+    obs_s = obs_t.index_select(1, g.state_pdf)
+    new_alpha = torch.where(m > half, m + obs_s, NEG_INF)
+    for r in range(L):
+        new_alpha = eps_layer(new_alpha, r)
+    best = new_alpha.amax(dim=1)
+    s = new_alpha.shape[1]
+    bits = new_alpha.contiguous().view(torch.int32).to(torch.int64)
+    okey = torch.where(bits < 0, -(bits & 0x7FFFFFFF) - 1, bits)
+    key = (~okey) * (1 << 32) + torch.arange(s, dtype=torch.int64)
+    idx = torch.topk(key, K, dim=1, largest=False, sorted=True).values & 0xFFFFFFFF
+    vals = new_alpha.gather(1, idx)
+    keep_k = (vals >= best[:, None] - beam) & (vals > half)
+    emit_k = keep_k & (vals >= best[:, None] - lbeam)
+    cutoff = torch.maximum(best - beam, torch.where(keep_k[:, K - 1], vals[:, K - 1],
+                                                    best - beam))[:, None]
+    alpha_next = torch.where(new_alpha >= cutoff, new_alpha, NEG_INF)
+    slot_cur = torch.full_like(slot_prev, -1).scatter_reduce(
+        1, idx, torch.where(emit_k, torch.arange(K).expand(b, K), -1), "amax")
+    act1 = (t < num_frames)[:, None]
+    return (obs_s, vals, idx, keep_k, emit_k, torch.where(act1, alpha_next, alpha),
+            torch.where(act1, slot_cur, slot_prev))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _tied(x, rng, q):
+    """x quantised to multiples of q (ties), with ±0.0 and NEG_INF entries,
+    and one row all NEG_INF."""
+    y = torch.round(x / q) * q
+    u = torch.from_numpy(rng.rand(*x.shape))
+    y = torch.where(u < 0.05, torch.tensor(-0.0), y)
+    y = torch.where((u >= 0.05) & (u < 0.1), torch.tensor(0.0), y)
+    y = torch.where((u >= 0.1) & (u < 0.3), torch.tensor(NEG_INF), y)
+    y[-1] = NEG_INF
+    return y.contiguous()
+
+
+@pytest.mark.parametrize("inputs", ["search", "ties"])
+@pytest.mark.parametrize("name,eps_mode,kw", SEARCHES,
+                         ids=[f"{n}-{m}-{i}" for i, (n, m, _) in enumerate(SEARCHES)])
+def test_frontier_plain_equals_the_frame(name, eps_mode, kw, inputs):
+    """``frontier_plain`` gives, bit for bit, what the frame computed, frame
+    by frame along each search (``search``), and on the same frames with
+    alpha and the observations quantised so that scores tie, with ±0.0,
+    NEG_INF entries and a NEG_INF row (``ties``)."""
+    f, obs, lens = GRAPHS[name]()
+    g = PD.pack_decode_graph(port_fst(f), eps_mode=eps_mode)
+    b, t_len = obs.shape[:2]
+    search = PD._Search(g, b, t_len, torch.device("cpu"), kw["max_active"], kw["max_arcs"],
+                        kw["beam"], kw["lattice_beam"], kw.get("return_olabels", False))
+    o, nf = torch.from_numpy(obs), torch.from_numpy(lens).long()
+    rng = np.random.RandomState(len(name) + t_len)
+    alpha, slot = search.alpha0, search.slot0
+    for t in range(t_len):
+        a_in, o_in = alpha, o[:, t]
+        if inputs == "ties":
+            a_in, o_in = _tied(alpha, rng, 0.5), _tied(o[:, t].clone(), rng, 0.25)
+        want = _frame_frontier(search, t, o_in, nf, a_in, slot)
+        got = FR.frontier_plain(g, a_in, o_in, slot, nf, t, search.K, search.beam,
+                                search.lattice_beam)
+        for field, x, y in zip(FR.Frontier._fields, got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape, field
+            assert torch.equal(_bits(x), _bits(y)), (field, t)
+        alpha, slot = search.frame(t, o[:, t], nf, alpha, slot)
+
+
+def test_frontier_takes_the_plain_form_on_cpu():
+    f, obs, lens = GRAPHS["deep_eps"]()
+    g = PD.pack_decode_graph(port_fst(f), eps_mode="inframe")
+    b, s = obs.shape[0], g.num_states
+    alpha = g.eps0_w[None].expand(b, s).clone()
+    slot = torch.zeros(b, s, dtype=torch.int64)
+    nf = torch.from_numpy(lens).long()
+    launches = FR.frontier.launches
+    got = FR.frontier(g, FR.frontier_tables(g), alpha, torch.from_numpy(obs[:, 0]), slot, nf, 0,
+                      4, 24.0, 12.0)
+    want = FR.frontier_plain(g, alpha, torch.from_numpy(obs[:, 0]), slot, nf, 0, 4, 24.0, 12.0)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+    assert FR.frontier.launches == launches
+
+
+class _FakeSearchLib:
+    """Stands in for csrc/search.cu's library: records the arguments of each
+    launch and returns ``rc``."""
+
+    def __init__(self, rc):
+        self.rc, self.calls = rc, []
+
+    def pk2_search_frontier(self, args, smem, stream):
+        a = args._obj
+        self.calls.append({f: getattr(a, f) for f in ("B", "S", "K", "N", "L", "t", "row_smem",
+                                                      "sort_smem", "beam", "lattice_beam")}
+                          | {"smem": smem, "scratch": bool(a.scratch)})
+        return self.rc
+
+
+@pytest.fixture
+def meta_frontier(monkeypatch):
+    """A graph, its K12 tables and the wrapper's inputs as meta tensors (no
+    memory: the shapes and dtypes of CUDA ones), with the launch's CUDA
+    calls stubbed."""
+    monkeypatch.setattr(FR.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(FR.D, "current_stream_ptr", lambda dev: None)
+    f, obs, lens = GRAPHS["deep_eps"]()
+    g_cpu = PD.pack_decode_graph(port_fst(f), eps_mode="inframe")
+    g = g_cpu.to("meta")
+    b, p, s = obs.shape[0], obs.shape[2], g.num_states
+    meta = torch.device("meta")
+    args = dict(alpha=torch.empty(b, s, device=meta),
+                obs_t=torch.empty(b, 3, p, device=meta)[:, 1],
+                slot_prev=torch.empty(b, s, dtype=torch.int64, device=meta),
+                num_frames=torch.empty(b, dtype=torch.int64, device=meta))
+    return g, FR.frontier_tables(g), args, g_cpu
+
+
+def test_frontier_wrapper_launches_k12_off_the_cpu(meta_frontier, monkeypatch):
+    g, tabs, args, _ = meta_frontier
+    lib = _FakeSearchLib(0)
+    monkeypatch.setattr(FR, "_lib", lambda: lib)
+    launches = FR.frontier.launches
+    out = FR.frontier(g, tabs, **args, t=3, k=4, beam=10.3, lattice_beam=4.0)
+    b, s = args["alpha"].shape
+    assert FR.frontier.launches == launches + 1
+    assert [tuple(x.shape) for x in out] == [(b, s), (b, 4), (b, 4), (b, 4), (b, 4), (b, s),
+                                             (b, s)]
+    assert [x.dtype for x in out] == [torch.float32, torch.float32, torch.int64, torch.bool,
+                                      torch.bool, torch.float32, torch.int64]
+    call = lib.calls[0]
+    assert (call["B"], call["S"], call["K"], call["N"], call["L"], call["t"]) == (
+        b, s, 4, 32, g.eps_depth, 3)
+    assert call["row_smem"] and call["sort_smem"] and not call["scratch"]
+    assert call["smem"] == FR.FIXED_SMEM + 8 * s + 8 * 32
+    assert call["beam"] == np.float32(10.3) and call["lattice_beam"] == 4.0
+    lib.rc = 700
+    with pytest.raises(RuntimeError, match=r"K12.*cudaError_t 700"):
+        FR.frontier(g, tabs, **args, t=0, k=4, beam=10.0, lattice_beam=4.0)
+    assert FR.frontier.launches == launches + 1
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("alpha dtype", "alpha has dtype"), ("alpha shape", "alpha must be"),
+    ("states", "K12 takes"), ("k zero", "K12 takes"), ("k above S", "K12 takes"),
+    ("slot on cpu", "slot_prev is on cpu"), ("slot dtype", "slot_prev has dtype"),
+    ("frames shape", "num_frames has shape"), ("obs stride", "unit column stride"),
+    ("obs dtype", "obs_t must be"), ("tables on cpu", "tables.lo_src is on cpu"),
+    ("tables dtype", "tables.pdf has dtype"), ("alpha strided", "alpha must be contiguous")])
+def test_frontier_wrapper_refuses_what_k12_does_not_take(meta_frontier, monkeypatch, fault,
+                                                         match):
+    g, tabs, args, g_cpu = meta_frontier
+    monkeypatch.setattr(FR, "_lib", lambda: pytest.fail("launched"))
+    b, s = args["alpha"].shape
+    meta = torch.device("meta")
+    k = 4
+    if fault == "alpha dtype":
+        args["alpha"] = args["alpha"].double()
+    elif fault == "alpha shape":
+        args["alpha"] = args["alpha"][None]
+    elif fault == "states":
+        args["alpha"] = torch.empty(b, s + 1, device=meta)
+    elif fault == "k zero":
+        k = 0
+    elif fault == "k above S":
+        k = s + 1
+    elif fault == "slot on cpu":
+        args["slot_prev"] = torch.zeros(b, s, dtype=torch.int64)
+    elif fault == "slot dtype":
+        args["slot_prev"] = args["slot_prev"].int()
+    elif fault == "frames shape":
+        args["num_frames"] = args["num_frames"][:1]
+    elif fault == "obs stride":
+        args["obs_t"] = torch.empty(b, 8, device=meta)[:, ::2]
+    elif fault == "obs dtype":
+        args["obs_t"] = torch.empty(b, 8, dtype=torch.float16, device=meta)
+    elif fault == "tables on cpu":
+        tabs = FR.frontier_tables(g_cpu)
+    elif fault == "tables dtype":
+        tabs = tabs._replace(pdf=tabs.pdf.long())
+    elif fault == "alpha strided":
+        args["alpha"] = torch.empty(s, b, device=meta).t()
+    launches = FR.frontier.launches
+    with pytest.raises(ValueError, match=match):
+        FR.frontier(g, tabs, **args, t=0, k=k, beam=10.0, lattice_beam=4.0)
+    assert FR.frontier.launches == launches
+
+
+@pytest.mark.parametrize("s,k,where", [(5167, 200, "both"), (5167, 5167, "both"), (128, 3, "both"),
+                                       (2059, 2000, "both"), (60000, 200, "sort"),
+                                       (60000, 7000, "sort"), (60000, 60000, "neither"),
+                                       (20000, 20000, "rows")])
+def test_frontier_smem_plan(s, k, where):
+    """K12's shared memory holds the rows first, then the sort buffer; what
+    does not fit is read from global memory, within the H100's limit."""
+    row_smem, sort_smem, smem, n = FR.smem_plan(s, k)
+    assert n >= max(k, 32) and n & (n - 1) == 0 and n < 2 * max(k, 32)
+    assert (row_smem, sort_smem) == {"both": (True, True), "sort": (False, True),
+                                     "rows": (True, False), "neither": (False, False)}[where]
+    assert smem == FR.FIXED_SMEM + 8 * s * row_smem + 8 * n * sort_smem <= FR.MAX_SMEM
+
+
+def test_search_frontier_counts_each_calls_frames(monkeypatch):
+    """``search.frontier`` adds B x T for each call whose frames ran through
+    K12, and nothing where the plain form ran: on the CPU, none; with the
+    kernel's route taken (a stand-in that counts its frames and runs the
+    plain form), B x T a call."""
+    from pykaldi2_tpu_torch.utils import tracing
+
+    f, obs, lens = GRAPHS["backoff"]()
+    g = PD.pack_decode_graph(port_fst(f), eps_mode="inframe")
+    b, t_len = obs.shape[:2]
+    o, nf = torch.from_numpy(obs), torch.from_numpy(lens)
+    kw = dict(beam=24.0, max_active=64, lattice_beam=12.0, max_arcs=256)
+    search = PD.DeviceSearch(g)
+    tracing.take()
+    want = search(o, nf, **kw)
+    assert "search.frontier" not in tracing.take()["counters"]
+    frames = []
+
+    def launch(g_, tabs, alpha, obs_t, *a):
+        frames.append(alpha.shape[0])
+        return FR.frontier_plain(g_, alpha, obs_t, *a)
+
+    monkeypatch.setattr(FR, "takes_kernel", lambda dev: True)
+    monkeypatch.setattr(PD, "takes_kernel", lambda dev: True)
+    monkeypatch.setattr(FR, "_launch", launch)
+    for calls in (1, 2):
+        got = search(o, nf, **kw)
+        assert tracing.take()["counters"]["search.frontier"] == (1, b * t_len)
+        assert sum(frames) == calls * b * t_len
+    for x, y in zip(want, got):
+        assert all(map(torch.equal, x, y)) if isinstance(x, tuple) else torch.equal(x, y)

@@ -83,11 +83,11 @@ def test_resolve_device_without_cuda_raises(monkeypatch):
 
 
 def test_kernel_sources_are_cuda_with_plain_c_interface():
-    """K1-K11 are hand-written CUDA C++ bound through ctypes: no PyTorch
+    """K1-K12 are hand-written CUDA C++ bound through ctypes: no PyTorch
     headers, no library kernels inside."""
     from pykaldi2_tpu_torch import device as D
 
-    assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb", "blockfb")
+    assert D.KERNEL_SOURCES == ("fbank", "lstm", "latfb", "blockfb", "search")
     for name in D.KERNEL_SOURCES:
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in src
